@@ -7,12 +7,14 @@ raises without a card; only an explicit ``device="cpu"`` runs on the host.
 The hand-written kernels (``csrc/``) and the native planner build at first
 use into ``alan_tpu_torch/_native/``.
 
-This slice carries the fused QEM step of the MovieLens models.
+The port carries the fused QEM step of the MovieLens models and of the
+covid timeseries model, and the ELBO of the AR(1) timeseries model.
 """
 
 from .dims import DT, dt
 from .bound import BoundPlate, named
-from .ir import Plate, Group, Data, Timeseries, OptParam, QEMParam, Normal, Bernoulli
+from .ir import (Plate, Group, Data, Timeseries, OptParam, QEMParam, Normal,
+                 Bernoulli, NegativeBinomial)
 from .sampler import PermutationSampler
 from .problem import Problem
 from .sample import Sample
@@ -23,6 +25,7 @@ from . import train, convert
 __all__ = [
     "DT", "dt", "named", "Plate", "BoundPlate", "Problem", "Group", "Data",
     "Timeseries", "OptParam", "QEMParam", "Normal", "Bernoulli",
+    "NegativeBinomial",
     "PermutationSampler", "Sample", "mean", "mean2", "no_checkpoint",
     "train", "convert",
 ]

@@ -1,11 +1,13 @@
 """Build the port's native libraries at first use.
 
-Two shared libraries with plain C interfaces, loaded with ctypes:
+Shared libraries with plain C interfaces, loaded with ctypes:
 
 * ``libalanpath`` -- the contraction-path planner, ``csrc/pathopt.cpp`` at the
   repository root (the same source ``alan_tpu`` builds), compiled with g++;
-* ``liblowrank_lse`` -- the lazy low-rank contraction kernels,
-  ``alan_tpu_torch/csrc/lowrank_lse.cu``, compiled with nvcc for ``sm_90a``.
+* one library per CUDA source in ``alan_tpu_torch/csrc/`` (:data:`KERNELS`),
+  compiled with nvcc for ``sm_90a``: the lazy low-rank contraction
+  (``lowrank_lse``), the small-K chain log-matmul (``smallk_logmmexp``) and
+  the fused log-matmul (``logmmexp``).
 
 Each goes into ``alan_tpu_torch/_native/`` under a name that carries a hash
 of its source and flags, so an edited source is rebuilt and never mixed up
@@ -24,7 +26,9 @@ import subprocess
 _PKG = os.path.dirname(os.path.abspath(__file__))
 NATIVE_DIR = os.path.join(_PKG, "_native")
 PLANNER_SRC = os.path.join(os.path.dirname(_PKG), "csrc", "pathopt.cpp")
-KERNEL_SRC = os.path.join(_PKG, "csrc", "lowrank_lse.cu")
+#: CUDA kernels: library name -> source
+KERNELS = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
+           for name in ("lowrank_lse", "smallk_logmmexp", "logmmexp")}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -39,8 +43,8 @@ def _nvcc() -> str:
     if os.path.exists(default):
         return default
     raise RuntimeError(
-        "nvcc not found: the lazy low-rank CUDA kernels build only where the "
-        "CUDA toolkit is installed")
+        "nvcc not found: the port's CUDA kernels build only where the CUDA "
+        "toolkit is installed")
 
 
 class _Build:
@@ -81,10 +85,11 @@ def start_planner() -> _Build:
     return _Build("alanpath", ["g++"], PLANNER_SRC, GXX_FLAGS)
 
 
-def start_kernels() -> _Build:
-    return _Build("lowrank_lse", [_nvcc()], KERNEL_SRC, NVCC_FLAGS)
+def start_kernel(name: str) -> _Build:
+    """Start (or find) the nvcc build of the CUDA source ``KERNELS[name]``."""
+    return _Build(name, [_nvcc()], KERNELS[name], NVCC_FLAGS)
 
 
 def start_all() -> list[_Build]:
-    """Start the planner and kernel builds together; ``wait()`` on each."""
-    return [start_planner(), start_kernels()]
+    """Start the planner and every kernel build together; ``wait()`` on each."""
+    return [start_planner(), *(start_kernel(name) for name in KERNELS)]

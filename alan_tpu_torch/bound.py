@@ -13,6 +13,7 @@ import torch
 from .dims import DT, as_dt, dims_of, dt
 from .ir.plate import Plate, tensordict2tree, flatten_tree
 from .ir.param import QEMParam
+from .ir.checking import check_timeseries
 from .sampler import PermutationSampler
 from .moments import moments_func2name
 from .conversions import conversion_dict
@@ -65,6 +66,8 @@ class BoundPlate:
                     raise Exception(
                         f"Size mismatch for {k} along {name}: all_platesizes says "
                         f"{all_platesizes[name]}, tensor has {v.dim_size(name)}")
+
+        check_timeseries(plate)
 
         # inputs must be used at plate depths consistent with their dims
         groupvarname2platenames = plate.groupvarname2platenames()

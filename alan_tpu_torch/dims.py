@@ -18,7 +18,7 @@ __all__ = [
     "DT", "dt", "as_dt", "is_dt", "dims_of", "dimsizes_of", "unify_dims",
     "check_unique_dims", "bind", "order", "detach", "expand_to", "align",
     "pos_op", "matmul", "elementwise", "sum_dims", "mean_dims", "logsumexp_dims",
-    "logmeanexp_dims", "sum_pos", "dt_index",
+    "logmeanexp_dims", "sum_pos", "dt_index", "rename_dim",
 ]
 
 
@@ -203,6 +203,15 @@ def detach(x):
     if isinstance(x, DT):
         return DT(x.data.detach(), x.dims)
     return x.detach() if isinstance(x, torch.Tensor) else x
+
+
+def rename_dim(x, old: str, new: str) -> DT:
+    """Relabel a named dim (a timeseries sample's K-dim viewed as the lagged
+    Kinit-dim)."""
+    x = as_dt(x)
+    if new in x.dims:
+        raise ValueError(f"dim {new} already present in {x.dims}")
+    return DT(x.data, tuple(new if d == old else d for d in x.dims))
 
 
 # -- alignment & elementwise ops ----------------------------------------

@@ -25,7 +25,9 @@ class DimDist:
         params = family.canonicalize(params)
         self.params = {k: as_dt(v) for k, v in params.items()}
         # python-number parameters become CPU tensors: put them beside the
-        # others, so a constant argument works on any device
+        # others, so a constant argument works on any device (where every
+        # parameter is a number, sample and log_prob move them to the
+        # generator's or the sample's device)
         device = next((v.data.device for v in self.params.values()
                        if v.data.device.type != "cpu"), None)
         if device is not None:
@@ -62,13 +64,13 @@ class DimDist:
         for v in self.params.values():
             self._dim_sizes.update(v.dimsizes())
 
-    def _prepared_params(self, n_pad: int):
-        """Each param as a raw tensor (*arg_dims_or_1, *1s, *own_pos) whose
-        batch block lines up with the target."""
+    def _prepared_params(self, n_pad: int, device):
+        """Each param as a raw tensor (*arg_dims_or_1, *1s, *own_pos) on
+        ``device`` whose batch block lines up with the target."""
         out = {}
         nd = len(self.arg_dims)
         for k, v in self.params.items():
-            a = expand_to(v, self.arg_dims)
+            a = expand_to(v, self.arg_dims).to(device)
             pad = n_pad + (self.batch_ndim - self._batch_ndims[k])
             if pad > 0:
                 a = a.reshape(tuple(a.shape[:nd]) + (1,) * pad + tuple(a.shape[nd:]))
@@ -95,7 +97,7 @@ class DimDist:
         full = (tuple(sizes[d] for d in extra)
                 + tuple(sizes[d] for d in self.arg_dims)
                 + sample_shape + tuple(self.batch_shape) + tuple(self.event_shape))
-        params = self._prepared_params(len(sample_shape))
+        params = self._prepared_params(len(sample_shape), generator.device)
         out = DT(self.family.sample(generator, full, params),
                  tuple(extra) + self.arg_dims)
         if not reparam:
@@ -133,7 +135,7 @@ class DimDist:
         x_arr = expand_to(x, union)
         params = {}
         for k, v in self.params.items():
-            a = expand_to(v, union)
+            a = expand_to(v, union).to(x_arr.device)
             pad = sample_ndim + (self.batch_ndim - self._batch_ndims[k])
             if pad > 0:
                 a = a.reshape(tuple(a.shape[:nu]) + (1,) * pad + tuple(a.shape[nu:]))

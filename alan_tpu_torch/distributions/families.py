@@ -1,6 +1,6 @@
 """Distribution families in plain torch (counterpart of
-``alan_tpu/distributions/families.py``).  This slice carries the two
-families the MovieLens model uses, Normal and Bernoulli.
+``alan_tpu/distributions/families.py``).  The port carries the families
+its models use: Normal and Bernoulli (MovieLens), NegativeBinomial (covid).
 
 Every family declares:
   - ``args``: ordered parameter signature (name -> default), so positional
@@ -113,4 +113,34 @@ class Bernoulli(Family):
         return x * logits - tnf.softplus(logits)
 
 
-FAMILIES = {f.name: f for f in [Normal, Bernoulli]}
+class NegativeBinomial(Family):
+    """Counts of successes before ``total_count`` failures, success
+    probability ``probs``: pmf(x) proportional to (1 - p)^r p^x (torch's
+    convention, as ``alan_tpu``)."""
+    name = "NegativeBinomial"
+    args = (("total_count", None), ("probs", None), ("logits", None))
+    arg_event_ndim = {"total_count": 0, "probs": 0, "logits": 0}
+    support = "nonneg_int"
+    discrete = True
+    has_rsample = False
+
+    @classmethod
+    def sample(cls, generator, shape, p):
+        # Gamma-Poisson mixture: lambda ~ Gamma(r, 1) * p / (1 - p)
+        probs, _ = _probs_logits(p)
+        probs = torch.broadcast_to(probs, shape)
+        r = torch.broadcast_to(torch.as_tensor(p["total_count"], dtype=torch.float32,
+                                               device=generator.device), shape)
+        lam = torch._standard_gamma(r.contiguous(), generator=generator) \
+            * (probs / (1.0 - probs))
+        return torch.poisson(lam, generator=generator)
+
+    @classmethod
+    def log_prob(cls, x, p):
+        probs, _ = _probs_logits(p)
+        r = p["total_count"]
+        return (torch.lgamma(x + r) - torch.lgamma(r) - torch.lgamma(x + 1.0)
+                + torch.xlogy(r, 1.0 - probs) + torch.xlogy(x, probs))
+
+
+FAMILIES = {f.name: f for f in [Normal, Bernoulli, NegativeBinomial]}

@@ -11,6 +11,7 @@ from ..utils import tree_values
 from .plate import Plate
 from .dist import Dist
 from .data import Data
+from .timeseries import Timeseries
 
 
 def check_inputs_params(P, Q):
@@ -72,6 +73,14 @@ def check_PQ_plate(platename: Optional[str], P: Plate, Q: Plate, data: dict):
                                 f"a Data/Dist, but is {type(distQ)}.")
             if isinstance(distQ, Dist):
                 check_support(name, dgpt_P, distQ)
+        elif isinstance(dgpt_P, Timeseries):
+            tdQ = Q.flat_prog[name]
+            if not isinstance(tdQ, (Dist, Timeseries, Data)):
+                raise Exception(f"{name} in P is a Timeseries, so {name} in Q should "
+                                f"be a Timeseries or Dist, but is {type(tdQ)}.")
+            if not isinstance(tdQ, Data):
+                distQ = tdQ.trans if isinstance(tdQ, Timeseries) else tdQ
+                check_support(name, dgpt_P.trans, distQ)
         elif isinstance(dgpt_P, Plate):
             plateQ = Q.flat_prog[name]
             if not isinstance(plateQ, Plate):
@@ -82,3 +91,34 @@ def check_PQ_plate(platename: Optional[str], P: Plate, Q: Plate, data: dict):
             raise Exception(f"{name} in P is Data; Data can only appear in Q.")
         else:
             raise Exception(f"{name} has unrecognised type {type(dgpt_P)}")
+
+
+def check_timeseries(top_plate: Plate):
+    """Timeseries inits must live (and be grouped consistently) in the
+    immediate parent plate."""
+    assert isinstance(top_plate, Plate)
+    for v in top_plate.grouped_prog.values():
+        if isinstance(v, Plate):
+            _check_timeseries_inner(v, top_plate)
+
+
+def _check_timeseries_inner(current_plate: Plate, upper_plate: Plate):
+    upper_v2g = upper_plate.varname2groupvarname()
+    for k, v in current_plate.grouped_prog.items():
+        if isinstance(v, dict):
+            init_groupnames = []
+            for gk, gv in v.items():
+                if isinstance(gv, Timeseries):
+                    if gv.init not in upper_plate.flat_prog:
+                        raise Exception(
+                            f"Timeseries must have an initializer in the immediate "
+                            f"parent plate; the initializer for {gk} ({gv.init}) "
+                            f"isn't in the parent plate.")
+                    init_groupnames.append(upper_v2g[gv.init])
+            if any(g != init_groupnames[0] for g in init_groupnames[1:]):
+                raise Exception(
+                    f"Initializers for grouped timeseries on group {k} must "
+                    f"be grouped the same way as the timeseries themselves.")
+        else:
+            assert isinstance(v, Plate)
+            _check_timeseries_inner(v, current_plate)

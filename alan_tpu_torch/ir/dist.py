@@ -83,6 +83,8 @@ class Dist:
         resolved = {}
         for distargname, v in bound.items():
             if isinstance(v, Param):
+                if varname is None:
+                    raise Exception("You can't use QEMParam / OptParam in a timeseries at present")
                 name = v.name if v.name is not None else f"{varname}_{distargname}"
                 self.opt_qem_params[name] = (distargname, v)
                 v = name
@@ -174,3 +176,4 @@ _dist_calls: dict[str, type] = {
     for name, fam in FAMILIES.items()}
 Normal = _dist_calls["Normal"]
 Bernoulli = _dist_calls["Bernoulli"]
+NegativeBinomial = _dist_calls["NegativeBinomial"]

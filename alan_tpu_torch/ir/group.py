@@ -9,13 +9,15 @@ from .dist import _DistCall
 
 class Group:
     def __init__(self, **kwargs):
+        from .timeseries import Timeseries
         for varname, dist in kwargs.items():
-            if not isinstance(dist, _DistCall):
+            if not isinstance(dist, (_DistCall, Timeseries)):
                 raise Exception(
-                    f"{varname} in a Group should be a distribution, but is "
-                    f"{type(dist)} (Timeseries are not ported yet)")
+                    f"{varname} in a Group should be a distribution or "
+                    f"Timeseries, but is {type(dist)}")
         if len(kwargs) < 2:
             raise Exception(
                 f"Groups only make sense with two or more random variables; got {len(kwargs)}")
-        self.prog = {varname: dist.finalize(varname)
+        self.prog = {varname: (dist.finalize(varname)
+                               if isinstance(dist, _DistCall) else dist)
                      for varname, dist in kwargs.items()}

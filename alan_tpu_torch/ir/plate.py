@@ -1,8 +1,8 @@
 """The program tree: ``Plate`` (counterpart of ``alan_tpu/ir/plate.py``).
 
 A model is a nested tree of Plates whose children are distributions, Groups,
-Data markers or sub-Plates.  Every traversal (Q-sampling, logPQ evaluation)
-is a Python recursion over this static tree.
+Timeseries, Data markers or sub-Plates.  Every traversal (Q-sampling, logPQ
+evaluation) is a Python recursion over this static tree.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from ..utils import check_name, list_duplicates, tree_branches
 from .dist import Dist, _DistCall, sample_gdt, datagroup
 from .group import Group
 from .data import Data
+from .timeseries import Timeseries
 
 
 class Plate:
@@ -27,7 +28,7 @@ class Plate:
                 self.grouped_prog[k] = v
                 self.flat_prog[k] = v
             else:
-                assert isinstance(v, (Group, Dist, Data)), \
+                assert isinstance(v, (Group, Dist, Timeseries, Data)), \
                     f"{k} has unsupported type {type(v)}"
                 group = v.prog if isinstance(v, Group) else {k: v}
                 self.grouped_prog[k] = {}
@@ -46,7 +47,7 @@ class Plate:
         """Move the constant tensors of every distribution to ``device``
         (in place)."""
         for v in self.flat_prog.values():
-            if isinstance(v, (Plate, Dist)):
+            if isinstance(v, (Plate, Dist, Timeseries)):
                 v.to(device)
 
     def grouped_get(self, d, groupname):
@@ -132,7 +133,7 @@ class Plate:
             if isinstance(v, dict):
                 if not datagroup(v):
                     for gk, gv in v.items():
-                        assert isinstance(gv, Dist)
+                        assert isinstance(gv, (Dist, Timeseries))
                         result[gk] = (k, gv)
             else:
                 assert isinstance(v, Plate)

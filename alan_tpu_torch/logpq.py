@@ -1,21 +1,26 @@
 """The log P/Q evaluator (counterpart of ``alan_tpu/logpq.py`` without its
-timeseries, chunked-scan and rematerialisation branches).
+chunked-scan, rematerialisation and mesh branches).
 
 A recursive walk over the (P, Q) plate trees gathers per-group log-factors
 ``log P - reduce_logQ(log Q) - log K`` (each carrying its K-dims and plate
 dims), contracts the K-dims with the planned log-space engine
-(``reduce_ks.py``) and sums plates.
+(``reduce_ks.py``), sums plates, and chains timeseries factors over their
+plate's dim T with log-space matmuls (``ops/logmmexp.py``).
 """
 from __future__ import annotations
 
 import math
 from typing import Optional
 
-from .dims import as_dt, sum_dims
+import torch
+
+from .dims import DT, as_dt, bind, sum_dims
 from .ir.plate import Plate, update_scope
 from .ir.dist import Dist, datagroup
 from .ir.data import Data
-from .reduce_ks import reduce_Ks
+from .ir.timeseries import Timeseries
+from .ops.logmmexp import chain_logmmexp
+from .reduce_ks import factor_components, reduce_Ks
 from .utils import tree_values
 
 
@@ -29,6 +34,13 @@ def logPQ_plate(name: Optional[str], P: Plate, Q: Plate, sample: dict,
         name=name, sample=sample, inputs_params=inputs_params,
         extra_log_factors=extra_log_factors, data=data,
         all_platedims=all_platedims)
+    if len(siedas) > 1 and any(isinstance(v, Timeseries)
+                               for v in P.flat_prog.values()):
+        # the T dim is a Markov chain: chunking it changes the lagged-sample
+        # alignment
+        raise ValueError(
+            f"You can't Split along plate '{name}' because it contains a "
+            f"Timeseries: splitting the T dimension is unsupported")
     assert len(siedas) == 1
     s = siedas[0]
     assert isinstance(P, Plate) and isinstance(Q, Plate)
@@ -39,13 +51,18 @@ def logPQ_plate(name: Optional[str], P: Plate, Q: Plate, sample: dict,
     scope = update_scope(scope, s["inputs_params"])
     scope = update_scope(scope, s["sample"])
 
-    lps, all_Ks = lp_getter(
+    lps, all_Ks, K_currs, K_inits = lp_getter(
         P=P, Q=Q, sample=s["sample"], inputs_params=s["inputs_params"],
         data=s["data"], extra_log_factors=s["extra_log_factors"], scope=scope,
         active_platedims=active_platedims, all_platedims=s["all_platedims"],
         groupvarname2Kdim=groupvarname2Kdim,
         varname2groupvarname=varname2groupvarname, sampler=sampler,
         computation_strategy=computation_strategy)
+    assert len(K_currs) == len(K_inits)
+
+    if name is not None and K_inits:
+        return _reduce_timeseries_plate(lps, all_Ks, K_currs, K_inits, name,
+                                        s["all_platedims"])
 
     lp = reduce_Ks(lps, all_Ks)
     if name is not None:
@@ -53,46 +70,126 @@ def logPQ_plate(name: Optional[str], P: Plate, Q: Plate, sample: dict,
     return lp
 
 
+def _reduce_timeseries_plate(lps, all_Ks, K_currs, K_inits, name,
+                             all_platedims):
+    """Contract a timeseries plate's factors.
+
+    The factors are partitioned into connected components linked by shared
+    eliminated K-dims (``reduce_ks.factor_components``): independent chains
+    contract separately and the per-component results add in log-space.
+    Components that hold timeseries groups chain the joint
+    ``[T, prod Ki, prod K]`` operator over T."""
+    T_size = all_platedims[name]
+    comps = factor_components([tuple(as_dt(lp).dims) for lp in lps],
+                              set(all_Ks) | set(K_currs))
+
+    total = None
+    for fidxs, cdims in comps:
+        clps = [lps[i] for i in fidxs]
+        c_nonts = [k for k in all_Ks if k in cdims]
+        c_groups = [g for g, kc in enumerate(K_currs) if kc in cdims]
+        if c_nonts:
+            r = reduce_Ks(clps, c_nonts)
+        else:
+            r = clps[0]
+            for x in clps[1:]:
+                r = r + x
+        if getattr(r, "__lazy_dt__", False):
+            r = r.materialize()
+        if c_groups:
+            r = _chain_ts(r, name, [K_inits[g] for g in c_groups],
+                          [K_currs[g] for g in c_groups])
+        elif name in r.dims:
+            r = sum_dims(r, (name,))
+        else:
+            # a factor with no plate dim is broadcast over T: summed T times
+            r = r * float(T_size)
+        total = r if total is None else total + r
+    return total
+
+
+def _chain_ts(lp, name, K_inits, K_currs):
+    """Chain one component's timeseries groups jointly: flatten the Kinit
+    dims into one axis and the Kcurr dims into another, chain the
+    ``[T, prod Ki, prod K]`` operator over T, logsumexp the final state, and
+    unflatten back to the separate Kinit dims."""
+    o = lp.order(name, *K_inits, *K_currs)      # (*hi, T, Ki..., K...)
+    n = len(K_inits)
+    nrem = len(o.dims)
+    shp = o.data.shape
+    ki_sizes = tuple(shp[nrem + 1: nrem + 1 + n])
+    k_sizes = tuple(shp[nrem + 1 + n:])
+    joint = o.data.reshape(tuple(shp[:nrem]) + (shp[nrem], math.prod(ki_sizes),
+                                                math.prod(k_sizes)))
+    chained = chain_logmmexp(joint)             # (*hi, prod Ki, prod K)
+    maxv = torch.amax(chained, dim=-1).detach()
+    summed = torch.log(torch.sum(torch.exp(chained - maxv[..., None]), dim=-1))
+    out = (summed + maxv).reshape(tuple(shp[:nrem]) + ki_sizes)
+    return bind(DT(out, o.dims), *K_inits)
+
+
 def logPQ_gdt(*, name, P, Q, sample, data, scope, active_platedims,
               groupvarname2Kdim, sampler):
     """Per-group factor: ``sum logP - reduce_logQ(sum logQ) - log K``; for a
-    Data variable, ``log P(data)``."""
+    Data variable, ``log P(data)``.  Returns ``(lp, non-timeseries K-dims,
+    timeseries K-dims, Kinit dims)``."""
     assert set(P.keys()) == set(Q.keys())
 
     if datagroup(Q):
         assert len(Q) == 1
         k = next(iter(Q))
         assert isinstance(Q[k], Data) and sample[k] is None
-        return P[k].log_prob(data[k], scope), ()
+        return P[k].log_prob(data[k], scope), (), (), ()
 
     Kdim = groupvarname2Kdim[name]
+    T_dim = active_platedims[-1] if active_platedims else None
     total_logP = 0.0
     total_logQ = 0.0
+    Kinits = []
     K = None
     for k in P:
         dist_P, dist_Q, sample_k = P[k], Q[k], sample[k]
-        assert isinstance(dist_P, Dist) and isinstance(dist_Q, Dist)
+        assert isinstance(dist_P, (Dist, Timeseries))
+        assert isinstance(dist_Q, (Dist, Timeseries))
         assert sample_k is not None and data[k] is None
         K = as_dt(sample_k).dim_size(Kdim)
-        total_logP = total_logP + dist_P.log_prob(sample_k, scope)
-        total_logQ = total_logQ + dist_Q.log_prob(sample_k, scope)
+        lp, Kinit_p = _log_prob(dist_P, sample_k, scope, T_dim, Kdim)
+        lq, Kinit_q = _log_prob(dist_Q, sample_k, scope, T_dim, Kdim)
+        if Kinit_q is not None:
+            assert Kinit_p == Kinit_q
+        if Kinit_p is not None:
+            Kinits.append(Kinit_p)
+        total_logP = total_logP + lp
+        total_logQ = total_logQ + lq
 
     total_logQ = sampler.reduce_logQ(total_logQ, active_platedims, Kdim)
-    return total_logP - total_logQ - math.log(K), (Kdim,)
+    lp = total_logP - total_logQ - math.log(K)
+    if Kinits:
+        assert all(ki == Kinits[0] for ki in Kinits)
+        return lp, (), (Kdim,), (Kinits[0],)
+    return lp, (Kdim,), (), ()
+
+
+def _log_prob(dist, sample, scope, T_dim, K_dim):
+    """(lp, Kinit dim or None) of a Dist or a Timeseries."""
+    if isinstance(dist, Timeseries):
+        return dist.log_prob(sample, scope, T_dim, K_dim)
+    return dist.log_prob(sample, scope), None
 
 
 def lp_getter(*, P, Q, sample, inputs_params, data, extra_log_factors, scope,
               active_platedims, all_platedims, groupvarname2Kdim,
               varname2groupvarname, sampler, computation_strategy):
-    """Traverse Q (by P's structure) collecting per-child log factors and
-    the K-dims to sum at this level."""
+    """Traverse Q (by P's structure) collecting per-child log factors, the
+    non-timeseries K-dims to sum at this level, and the timeseries K-dims
+    with their Kinit dims."""
     assert set(P.flat_prog.keys()) == set(Q.flat_prog.keys())
 
     lps = list(tree_values(extra_log_factors).values())
-    all_Ks = []
+    Knon_timeseries, Ktimeseries, Kinits = [], [], []
     for childname, childQ in Q.grouped_prog.items():
         if isinstance(childQ, dict):
-            lp, Ks = logPQ_gdt(
+            lp, Knt, Kt, Ki = logPQ_gdt(
                 name=childname, P={vn: P.flat_prog[vn] for vn in childQ},
                 Q=childQ, sample=Q.grouped_get(sample, childname),
                 data=Q.grouped_get(data, childname), scope=scope,
@@ -112,7 +209,9 @@ def lp_getter(*, P, Q, sample, inputs_params, data, extra_log_factors, scope,
                 groupvarname2Kdim=groupvarname2Kdim,
                 varname2groupvarname=varname2groupvarname, sampler=sampler,
                 computation_strategy=computation_strategy)
-            Ks = ()
+            Knt, Kt, Ki = (), (), ()
         lps.append(lp)
-        all_Ks.extend(Ks)
-    return lps, all_Ks
+        Knon_timeseries.extend(Knt)
+        Ktimeseries.extend(Kt)
+        Kinits.extend(Ki)
+    return lps, Knon_timeseries, Ktimeseries, Kinits

@@ -1,0 +1,170 @@
+"""COVID NPI model (counterpart of ``examples/models/covid.py``): nRs = 92
+regions x nDs = 137 days, a first-order Markov ``log_infected`` chain per
+region (a Timeseries over the days) and NegativeBinomial case counts.
+Training uses the first ``int(0.8 * nDs) = 109`` days.
+
+Fake data comes from a numpy seed (:func:`fake_data`) by the recipe of
+``covid.load_data_covariates``: NPIs ~ Bernoulli(0.3), wearing and mobility
+~ U(0, 1), every latent drawn from the prior, the ``log_infected``
+recursion, and NegativeBinomial observations.  The same arrays can feed
+this package and ``alan_tpu``.
+
+With a QEM Q (``generate_problem``) the chain operator of ``log_infected``
+is ``[nRs, K_npis, T, K_a, K_log_infected]``: nRs * K chains of T = 109
+operators of K x K, which the small-K chain kernel contracts.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..bound import BoundPlate
+from ..convert import dt_from_numpy
+from ..ir import (Data, Group, NegativeBinomial, Normal, Plate, QEMParam,
+                  Timeseries)
+from ..problem import Problem
+
+nRs = 92
+nDs = 137
+nCMs = 11
+
+_PLATES = ("nRs", "nDs")
+
+
+def fake_data(seed=0, nRs=nRs, nDs=nDs):
+    """numpy arrays over all ``nDs`` days: covariates ``npis`` (nRs, nDs,
+    nCMs - 2), ``wearing`` and ``mobility`` (nRs, nDs), observations ``obs``
+    (nRs, nDs), and the latents they were drawn from."""
+    rng = np.random.default_rng(seed)
+    npis = (rng.random((nRs, nDs, nCMs - 2)) < 0.3).astype(np.float32)
+    wearing = rng.random((nRs, nDs)).astype(np.float32)
+    mobility = rng.random((nRs, nDs)).astype(np.float32)
+
+    lat = {
+        "CM_alpha": rng.normal(0.0, 1.0, nCMs - 2),
+        "Wearing_alpha": rng.normal(0.0, 0.4),
+        "Mobility_alpha": rng.normal(1.704, 0.44),
+        "RegionR": rng.normal(1.07, 0.2 + 0.4),
+        "InitialSize_log_mean": rng.normal(math.log(1000), 0.5),
+        "log_infected_noise_mean": rng.normal(math.log(0.01), 0.25),
+    }
+    lat["InitialSize_log"] = rng.normal(lat["InitialSize_log_mean"], 0.5, nRs)
+    lat["log_infected_noise"] = rng.normal(lat["log_infected_noise_mean"], 0.25, nRs)
+    lat["psi"] = rng.normal(0.0, 1.0, nRs)
+
+    log_infected = np.empty((nRs, nDs))
+    prev = lat["InitialSize_log"]
+    for t in range(nDs):
+        mu = (lat["RegionR"] + npis[:, t] @ lat["CM_alpha"]
+              + lat["Wearing_alpha"] * wearing[:, t]
+              + lat["Mobility_alpha"] * mobility[:, t] + prev)
+        prev = rng.normal(mu, np.exp(lat["log_infected_noise"]))
+        log_infected[:, t] = prev
+    lat["log_infected"] = log_infected
+
+    r = np.exp(lat["psi"])[:, None]
+    probs = 1.0 / (r * np.exp(-log_infected) + 1 + 1e-7)
+    lam = rng.gamma(np.broadcast_to(r, probs.shape)) * probs / (1.0 - probs)
+    obs = rng.poisson(lam).astype(np.float32)
+    out = {"npis": npis, "wearing": wearing, "mobility": mobility, "obs": obs}
+    out.update({k: np.asarray(v, np.float32) for k, v in lat.items()})
+    return out
+
+
+def load_data_covariates(seed=0, nRs=nRs, nDs=nDs, device="cuda"):
+    """(platesizes, all_platesizes, data, all_data, covariates,
+    all_covariates) of a fake dataset, on ``device``; the training part is
+    the first ``int(0.8 * nDs)`` days."""
+    arrays = fake_data(seed, nRs, nDs)
+    nDs_train = int(nDs * 0.8)
+
+    def split(a):
+        return (dt_from_numpy(a[:, :nDs_train], _PLATES, device),
+                dt_from_numpy(a, _PLATES, device))
+
+    covariates, all_covariates = {}, {}
+    for name, key in (("ActiveCMs_NPIs", "npis"), ("ActiveCMs_wearing", "wearing"),
+                      ("ActiveCMs_mobility", "mobility")):
+        covariates[name], all_covariates[name] = split(arrays[key])
+    obs, all_obs = split(arrays["obs"])
+    return ({"nRs": nRs, "nDs": nDs_train}, {"nRs": nRs, "nDs": nDs},
+            {"obs": obs}, {"obs": all_obs}, covariates, all_covariates)
+
+
+def get_P(platesizes, covariates, device="cuda"):
+    cm_prior_scale = 1
+    wearing_mean, wearing_sigma = 0, 0.4
+    mobility_mean, mobility_sigma = 1.704, 0.44
+    R_prior_mean_mean, R_prior_mean_scale = 1.07, 0.2
+    R_noise_scale = 0.4
+
+    Expected_Log_Rs = lambda RegionR, CM_alpha, ActiveCMs_NPIs, Wearing_alpha, \
+        ActiveCMs_wearing, Mobility_alpha, ActiveCMs_mobility, prev: \
+        RegionR + CM_alpha @ ActiveCMs_NPIs + Wearing_alpha * ActiveCMs_wearing \
+        + Mobility_alpha * ActiveCMs_mobility + prev
+
+    P = Plate(
+        CM_alpha=Normal(0, cm_prior_scale, sample_shape=[nCMs - 2]),
+        Wearing_alpha=Normal(wearing_mean, wearing_sigma),
+        Mobility_alpha=Normal(mobility_mean, mobility_sigma),
+        RegionR=Normal(R_prior_mean_mean, R_prior_mean_scale + R_noise_scale),
+        InitialSize_log_mean=Normal(math.log(1000), 0.5),
+        log_infected_noise_mean=Normal(math.log(0.01), 0.25),
+        nRs=Plate(
+            InitialSize_log=Normal(lambda InitialSize_log_mean: InitialSize_log_mean, 0.5),
+            log_infected_noise=Normal(lambda log_infected_noise_mean: log_infected_noise_mean, 0.25),
+            psi=Normal(0, 1),
+            nDs=Plate(
+                log_infected=Timeseries('InitialSize_log',
+                                        Normal(Expected_Log_Rs,
+                                               lambda log_infected_noise: log_infected_noise.exp())),
+                obs=NegativeBinomial(
+                    total_count=lambda psi: psi.exp(),
+                    probs=lambda log_infected, psi:
+                    1.0 / ((psi.exp() / log_infected.exp()) + 1 + 1e-7)),
+            ),
+        ),
+    )
+    return BoundPlate(P, platesizes, inputs=covariates, device=device)
+
+
+def generate_problem(platesizes, data, covariates, Q_param_type="qem",
+                     device="cuda"):
+    """The covid problem with a factorised Normal Q of QEM parameters (the
+    JAX benchmark's ``covid_full_qem_K30`` configuration)."""
+    if Q_param_type != "qem":
+        raise NotImplementedError(
+            "only Q_param_type='qem' is ported to alan_tpu_torch (OptParam waits)")
+    P = get_P(platesizes, covariates, device)
+
+    def qem(loc_init=0.0, scale_init=1.0, shape=None):
+        if shape:
+            return Normal(QEMParam(torch.full(shape, loc_init)),
+                          QEMParam(torch.full(shape, scale_init)))
+        return Normal(QEMParam(loc_init), QEMParam(scale_init))
+
+    Q = Plate(
+        npis=Group(
+            CM_alpha=qem(shape=(nCMs - 2,)),
+            Wearing_alpha=qem(),
+            Mobility_alpha=qem(),
+            RegionR=qem(loc_init=1.0),
+            InitialSize_log_mean=qem(loc_init=math.log(1000)),
+            log_infected_noise_mean=qem(loc_init=math.log(0.01)),
+        ),
+        nRs=Plate(
+            a=Group(
+                InitialSize_log=qem(loc_init=math.log(1000)),
+                log_infected_noise=qem(loc_init=math.log(0.01)),
+                psi=qem(),
+            ),
+            nDs=Plate(
+                log_infected=qem(loc_init=math.log(1000)),
+                obs=Data(),
+            ),
+        ),
+    )
+    Q = BoundPlate(Q, platesizes, inputs=covariates, device=device)
+    return Problem(P, Q, data, device=device)

@@ -1,0 +1,69 @@
+"""Log-space matrix products for timeseries contraction (counterpart of
+``alan_tpu/ops/logmmexp.py``).
+
+The chain over T is reduced with a balanced pairwise tree, the same tree as
+``alan_tpu`` (the odd remainder of a level is carried to the end of the
+next).  Routes, as ``alan_tpu`` takes them (``logmmexp.py:15-101``):
+
+* a float32 chain with T >= 2 and 2 <= K <= 100 runs the small-K chain
+  kernel, one launch per tree level (``ops/smallk_kernel.py``);
+* otherwise each tree node whose contracted dim is 128 or more, in float32,
+  runs the fused log-matmul kernel (``ops/logmmexp_kernel.py``);
+* anything else takes the dense torch route: max-shifted exponentials and
+  one ``torch.matmul``.
+
+``ALAN_TPU_NO_SMALLK_CHAIN=1`` turns the small-K route off and
+``ALAN_TPU_SMALLK_CHAIN=1`` forces it, as in ``alan_tpu``.  The TPU's own
+limits on these routes (the VMEM footprint model, a batch that fills the
+128 lanes) have no counterpart on the card: each kernel raises on what it
+cannot take instead.  CPU tensors take the same routes, and each kernel
+module gives them its plain version.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+
+from .logmmexp_kernel import logmmexp_fused, reference_logmmexp
+from .smallk_kernel import chain_logmmexp_smallk
+
+#: largest K of a chain routed to the small-K kernel (alan_tpu's default)
+SMALLK_CHAIN_MAX_K = 100
+
+
+def logmmexp(A, B, allow_kernel: bool = True):
+    """Batched log-space matmul: ``logsumexp_j(A[..., i, j] + B[..., j, k])``,
+    max-shifted, with ``tiny`` inside the log."""
+    if allow_kernel and A.shape[-1] >= 128 and A.dtype == torch.float32:
+        return logmmexp_fused(A, B)
+    return reference_logmmexp(A, B)
+
+
+def _use_smallk(ms) -> bool:
+    """Route a chain to the small-K kernel (``alan_tpu``'s
+    ``_use_smallk_lanes`` without its TPU layout limits)."""
+    if os.environ.get("ALAN_TPU_NO_SMALLK_CHAIN"):
+        return False
+    if os.environ.get("ALAN_TPU_SMALLK_CHAIN"):
+        return True
+    return (ms.dtype == torch.float32 and 2 <= ms.shape[-1] <= SMALLK_CHAIN_MAX_K
+            and ms.shape[-3] >= 2)
+
+
+def chain_logmmexp(ms):
+    """Reduce ``ms[..., T, K, K]`` over T with log-space matmuls in a
+    balanced pairwise tree, vectorised over the leading batch axes."""
+    assert ms.shape[-1] == ms.shape[-2]
+    if _use_smallk(ms):
+        return chain_logmmexp_smallk(ms)
+    T_axis = ms.dim() - 3
+    while ms.shape[T_axis] != 1:
+        n = ms.shape[T_axis]
+        even = ms.narrow(T_axis, 0, n - n % 2)[..., ::2, :, :]
+        odd = ms.narrow(T_axis, 1, n - 1)[..., ::2, :, :]
+        prod = logmmexp(even, odd)
+        if n % 2 == 1:
+            prod = torch.cat([prod, ms.narrow(T_axis, n - 1, 1)], dim=T_axis)
+        ms = prod
+    return ms.squeeze(T_axis)

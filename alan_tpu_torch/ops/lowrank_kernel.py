@@ -34,9 +34,9 @@ instead, under ordinary autograd.  A CUDA tensor gets the kernel or an error.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from .native import INT, PTR, check_status, load, ptr, stream
 
 #: launches of the forward / backward kernels (one per wrapper call that
 #: reaches the card; the plain version on the CPU does not count)
@@ -50,27 +50,15 @@ _DV_TARGET_BLOCKS = 4 * 132
 #: longest (p, i) range one dV block sums
 _DV_MAX_ROWS = 1024
 
-_LIB = None
+_SIGNATURES = {
+    "lowrank_lse_fwd": [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
+    "lowrank_lse_bwd": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT,
+                        INT, INT, INT, INT, INT, PTR],
+}
 
 
 def _lib():
-    global _LIB
-    if _LIB is None:
-        from .._build import start_kernels
-        lib = ctypes.CDLL(start_kernels().wait())
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.lowrank_lse_fwd.restype = i
-        lib.lowrank_lse_fwd.argtypes = [p, p, p, p, i, i, i, i, i, p]
-        lib.lowrank_lse_bwd.restype = i
-        lib.lowrank_lse_bwd.argtypes = [p, p, p, p, p, p, p, p, p, i,
-                                        i, i, i, i, i, p]
-        _LIB = lib
-    return _LIB
-
-
-def _check_status(rc: int, what: str):
-    if rc != 0:
-        raise RuntimeError(f"{what} failed with CUDA error {rc}")
+    return load("lowrank_lse", _SIGNATURES)
 
 
 def _check_operands(U, V, D):
@@ -100,23 +88,15 @@ def _check_operands(U, V, D):
     return S, P, I, J, F
 
 
-def _stream(t):
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr()) if t is not None else ctypes.c_void_p(0)
-
-
 def _launch_fwd(U, V, D):
     global FWD_LAUNCHES
     S, P, I, J, F = _check_operands(U, V, D)
     lib = _lib()
     out = torch.empty((S, P, J), device=U.device, dtype=torch.float32)
     with torch.cuda.device(U.device):
-        rc = lib.lowrank_lse_fwd(_ptr(U), _ptr(V), _ptr(D), _ptr(out),
-                                 S, P, I, J, F, _stream(U))
-    _check_status(rc, "lowrank_lse_fwd")
+        rc = lib.lowrank_lse_fwd(ptr(U), ptr(V), ptr(D), ptr(out),
+                                 S, P, I, J, F, stream(U))
+    check_status(rc, "lowrank_lse_fwd")
     FWD_LAUNCHES += 1
     return out
 
@@ -151,10 +131,10 @@ def _launch_bwd(U, V, D, out, g, want_dU: bool, want_dV: bool):
         dV = torch.empty((S, J, F), **kw)
         scratch = torch.empty((n_chunks, S, J, F), **kw)
     with torch.cuda.device(U.device):
-        rc = lib.lowrank_lse_bwd(_ptr(U), _ptr(V), _ptr(D), _ptr(out), _ptr(g),
-                                 _ptr(dU), _ptr(dD), _ptr(dV), _ptr(scratch),
-                                 n_chunks, S, P, I, J, F, _stream(U))
-    _check_status(rc, "lowrank_lse_bwd")
+        rc = lib.lowrank_lse_bwd(ptr(U), ptr(V), ptr(D), ptr(out), ptr(g),
+                                 ptr(dU), ptr(dD), ptr(dV), ptr(scratch),
+                                 n_chunks, S, P, I, J, F, stream(U))
+    check_status(rc, "lowrank_lse_bwd")
     BWD_LAUNCHES += 1
     return dU, dD, dV
 

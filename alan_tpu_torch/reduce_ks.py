@@ -1,5 +1,5 @@
-"""The K-contraction engine (counterpart of the non-timeseries part of
-``alan_tpu/reduce_ks.py``).
+"""The K-contraction engine (counterpart of ``alan_tpu/reduce_ks.py``
+without its sampling passes: reverse replay and FFBS).
 
 Summing the K^n combinations of per-latent particles factorises into a
 tensor-network contraction over the named K-dims.  The contraction is
@@ -128,3 +128,43 @@ def reduce_Ks(lps, Ks_to_sum) -> DT:
     """Sum over ``Ks_to_sum``, returning a single factor."""
     result, _, _ = collect_lps(lps, Ks_to_sum)
     return result
+
+
+def factor_components(factor_dims, elim):
+    """Partition factors into connected components linked by shared dims in
+    ``elim`` (union-find).  Returns a list of ``(factor_idxs, comp_dims)``
+    with ``factor_idxs`` sorted and components ordered by smallest factor
+    index; ``comp_dims`` is the set of elim dims present in the component.
+
+    Two factors must be reduced together iff they share an eliminated dim
+    (directly or transitively): eliminations over disjoint dim sets commute,
+    so each component contracts independently and the results add in
+    log-space.  This is what lets n independent timeseries in one plate cost
+    n * O(T K^2) instead of the joint O(T K^2n) chain.
+    """
+    elim = set(elim)
+    parent = list(range(len(factor_dims)))
+
+    def find(i):
+        while parent[i] != i:
+            parent[i] = parent[parent[i]]
+            i = parent[i]
+        return i
+
+    dim2first = {}
+    for i, ds in enumerate(factor_dims):
+        for d in ds:
+            if d not in elim:
+                continue
+            if d in dim2first:
+                ri, rj = find(i), find(dim2first[d])
+                if ri != rj:
+                    parent[max(ri, rj)] = min(ri, rj)
+            else:
+                dim2first[d] = i
+
+    comps = {}
+    for i in range(len(factor_dims)):
+        comps.setdefault(find(i), []).append(i)
+    return [(idxs, set().union(*(set(factor_dims[i]) & elim for i in idxs)))
+            for _, idxs in sorted(comps.items())]

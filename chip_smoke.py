@@ -6,10 +6,12 @@
 Phases, one JSON line each; any failed check makes the script exit non-zero
 without its final line:
 
-1. build     -- compile the CUDA kernels (nvcc, sm_90a) and the native
-                planner (g++) from the sources in this checkout, together;
-2. kernels   -- each kernel against its plain PyTorch version on the card, at
-                the main-path shape (1, 300, 1000, 1000, 36), an overhang
+1. build     -- compile the CUDA kernels (nvcc, sm_90a, one process per
+                source) and the native planner (g++) from the sources in
+                this checkout, all at once;
+2. kernels   -- each kernel against its plain PyTorch version on the card.
+                The lazy low-rank kernels at the MovieLens main-path shape
+                (1, 300, 1000, 1000, 36), an overhang
                 shape, -inf-bias cases, a feature axis wider than one chunk
                 and a plate longer than a grid axis: forward rtol/atol
                 1e-5, gradients rtol 1e-4 / atol 1e-5.  A gradient that
@@ -19,7 +21,15 @@ without its final line:
                 the plain version is no exact reference either).  Times from
                 CUDA events, median of several runs, beside the dense
                 two-call yardstick (``torch.baddbmm`` + ``torch.logsumexp``,
-                never called by the port);
+                never called by the port).
+                The small-K chain kernels (forward and backward, a tree level
+                per launch) on whole chains: covid's (2760 chains, T = 109,
+                K = 30), K = 2, K = 100 with odd T, -inf entries: forward
+                rtol/atol 1e-5, gradients rtol 1e-4 / atol 1e-5 (with the
+                same f64 rule).  The fused log-matmul kernel at (2, 1000,
+                1000) @ (2, 1000, 1000), a ragged shape and -inf rows:
+                rtol/atol 1e-5.  Times beside the plain version's and the
+                dense torch route's (``ALAN_TPU_NO_SMALLK_CHAIN=1``);
 3. main_path -- grouped MovieLens at full width (M=300, N=5, d_z=18), K=1000,
                 data from a fixed numpy seed, ``train.qem`` steps on the card;
                 the launch counters are zeroed just before and read just
@@ -29,10 +39,25 @@ without its final line:
 4. cross_check -- one QEM update from the same state and the same injected
                 particles with the lazy path on (kernels) and off (the dense
                 materialised cross product): ELBO within 1e-4 relative, the
-                updated Q state within rtol/atol 1e-4.
+                updated Q state within rtol/atol 1e-4;
+5. covid_main_path -- the covid model at full size (92 regions x 109
+                training days, ``examples/models/covid.py``), a QEM Q, K=30,
+                data from a fixed numpy seed, ``train.qem`` steps on the
+                card: both small-K chain kernels must launch in every step
+                (one launch per tree level: 7 each), finite ELBOs and state,
+                peak memory, then a profile of two more steps;
+6. covid_cross_check -- one covid update from the same state and injected
+                particles, small-K kernels against the dense chain route:
+                ELBO within 1e-4 relative, the Q state within rtol/atol 1e-4;
+7. ar1_large_k -- the AR(1) model at K=1000, whose chain runs through the
+                fused log-matmul kernel: 20 ELBO draws must bracket the
+                exact Kalman log-likelihood by the criterion of
+                ``tests/test_problem_vs_itself.py:141-160``.
 
-Then the ``kernels`` line, the card's name and power limit as nvidia-smi
-prints them, and ``{"ok": true, "device": {...}}`` last.
+Each path (phases 3, 5, 7) is driven with the launch counters set to 0
+just before it and read just after.  Then the ``kernels`` line, the card's
+name and power limit as nvidia-smi prints them, and
+``{"ok": true, "device": {...}}`` last.
 """
 import json
 import os
@@ -50,6 +75,12 @@ PEAK_F32_FLOP_PER_S = 67e12
 
 MAIN_SHAPE = (1, 300, 1000, 1000, 36)   # S, P, I, J, F of grouped MovieLens K=1000
 K_MAIN, QEM_STEPS = 1000, 5
+#: covid's log_infected chain at K=30: nRs * K_npis chains, T = 109 days, K
+COVID_CHAIN = (92 * 30, 109, 30)
+K_COVID = 30
+#: nb, M, K, N of the first chain level of the AR(1) model at K=1000
+FUSED_MAIN = (2, 1000, 1000, 1000)
+K_AR1, AR1_ELBOS = 1000, 20
 
 FAILURES = []
 
@@ -100,6 +131,23 @@ def phase_build():
 
 # ---- phase 2 ------------------------------------------------------------------
 
+def _check(res, phase, tag, name, got, want, exact, rtol, atol):
+    """Record ``got`` against the plain version ``want``.  A gradient that
+    misses the bound passes if it is at least as close as the plain version
+    to the f64 evaluation ``exact``."""
+    import torch
+    err = (got - want).abs().max().item()
+    close = torch.allclose(got, want, rtol=rtol, atol=atol)
+    err64 = (got.double() - exact).abs().max().item()
+    plain64 = (want.double() - exact).abs().max().item()
+    res[name] = {"max_abs_err": err, "within_tol": close,
+                 "err_vs_f64": err64, "plain_err_vs_f64": plain64}
+    if not close and not (name != "out" and err64 <= plain64):
+        res["ok"] = False
+        fail(phase, f"{tag} {name}: max abs err {err} "
+                    f"(vs f64 {err64}, plain vs f64 {plain64})")
+
+
 def _operands(shape, seed, inf_bias=False):
     import numpy as np
     import torch
@@ -132,20 +180,9 @@ def _check_case(tag, shape, seed, inf_bias=False):
         lk.reference_lowrank_logsumexp, *(t.double() for t in (U, V, D, G)))
     torch.cuda.synchronize()
     res = {"phase": "kernels", "case": tag, "shape": list(shape), "ok": True}
-    checks = [("out", got, want, exact, 1e-5, 1e-5)]
-    checks += [(f"d{n}", a, b, c, 1e-4, 1e-5)
-               for n, a, b, c in zip("UVD", ggot, gwant, gexact)]
-    for name, a, b, c, rtol, atol in checks:
-        err = (a - b).abs().max().item()
-        close = torch.allclose(a, b, rtol=rtol, atol=atol)
-        err64 = (a.double() - c).abs().max().item()
-        plain64 = (b.double() - c).abs().max().item()
-        res[name] = {"max_abs_err": err, "within_tol": close,
-                     "err_vs_f64": err64, "plain_err_vs_f64": plain64}
-        if not close and not (name != "out" and err64 <= plain64):
-            res["ok"] = False
-            fail("kernels", f"{tag} {name}: max abs err {err} "
-                            f"(vs f64 {err64}, plain vs f64 {plain64})")
+    _check(res, "kernels", tag, "out", got, want, exact, 1e-5, 1e-5)
+    for n, a, b, c in zip("UVD", ggot, gwant, gexact):
+        _check(res, "kernels", tag, f"d{n}", a, b, c, 1e-4, 1e-5)
     if inf_bias and not torch.isfinite(got).all():
         res["ok"] = False
         fail("kernels", f"{tag}: non-finite output")
@@ -206,7 +243,179 @@ def phase_kernels():
     }
 
 
-# ---- phases 3 and 4 -------------------------------------------------------------
+# ---- phase 2, the timeseries kernels ------------------------------------------
+
+def _chain_operands(shape, seed, inf=False):
+    import numpy as np
+    import torch
+    B, T, K = shape
+    rng = np.random.default_rng(seed)
+    ms = (rng.standard_normal((B, T, K, K), dtype=np.float32) * 2 - 1)
+    if inf:
+        ms[:, 2, :, 3] = -np.inf
+        ms[:, 3, 1, :] = -np.inf
+    W = rng.standard_normal((B, K, K), dtype=np.float32)
+    return torch.from_numpy(ms).cuda(), torch.from_numpy(W).cuda()
+
+
+def _chain_value_and_grad(level, ms, W):
+    import torch
+    x = ms.clone().requires_grad_(True)
+    y = x
+    while y.shape[1] != 1:
+        y = level(y)
+    (g,) = torch.autograd.grad((y[:, 0] * W).sum(), [x])
+    return y[:, 0].detach(), g
+
+
+def _check_chain(tag, shape, seed, inf=False):
+    import torch
+    from alan_tpu_torch.ops import smallk_kernel as sk
+    ms, W = _chain_operands(shape, seed, inf)
+    got, ggot = _chain_value_and_grad(sk.logmmexp_level, ms, W)
+    want, gwant = _chain_value_and_grad(sk.reference_level, ms, W)
+    exact, gexact = _chain_value_and_grad(sk.reference_level, ms.double(),
+                                          W.double())
+    torch.cuda.synchronize()
+    res = {"phase": "kernels", "kernel": "smallk_logmmexp", "case": tag,
+           "chains_T_K": list(shape), "ok": True}
+    _check(res, "kernels", tag, "out", got, want, exact, 1e-5, 1e-5)
+    _check(res, "kernels", tag, "dms", ggot, gwant, gexact, 1e-4, 1e-5)
+    if not torch.isfinite(got).all():
+        res["ok"] = False
+        fail("kernels", f"{tag}: non-finite chain")
+    emit(res)
+    return res, ms
+
+
+def _levels(T):
+    """Pairs per tree level of a chain of T operators."""
+    out = []
+    while T != 1:
+        out.append(T // 2)
+        T = (T + 1) // 2
+    return out
+
+
+def phase_chain_kernels():
+    """The small-K chain kernels against their plain version on whole
+    chains, and their times over covid's chain."""
+    import torch
+    from alan_tpu_torch.ops import logmmexp as lm
+    from alan_tpu_torch.ops import smallk_kernel as sk
+    _check_chain("K2", (130, 8, 2), seed=21)
+    _check_chain("K100_odd_T", (16, 5, 100), seed=22)
+    _check_chain("inf", (40, 7, 30), seed=23, inf=True)
+    main, ms = _check_chain("covid_chain", COVID_CHAIN, seed=20)
+
+    xs, x = [], ms
+    with torch.no_grad():
+        while x.shape[1] != 1:
+            xs.append(x)
+            x = sk._launch_fwd(x)
+    gs = [torch.randn((x.shape[0], (x.shape[1] + 1) // 2) + x.shape[2:],
+                      device=x.device) for x in xs]
+
+    def fwd():
+        x = ms
+        while x.shape[1] != 1:
+            x = sk._launch_fwd(x)
+
+    def bwd():
+        for x, g in zip(xs, gs):
+            sk._launch_bwd(x, g)
+
+    def plain_fwd():
+        with torch.no_grad():
+            x = ms
+            while x.shape[1] != 1:
+                x = sk.reference_level(x)
+
+    def dense_fwd():
+        with torch.no_grad():
+            lm.chain_logmmexp(ms)
+
+    fwd_ms, bwd_ms = cuda_ms(fwd), cuda_ms(bwd)
+    plain_fwd_ms = cuda_ms(plain_fwd, reps=5, inner=1)
+    os.environ["ALAN_TPU_NO_SMALLK_CHAIN"] = "1"
+    try:
+        dense_fwd_ms = cuda_ms(dense_fwd, reps=5, inner=1)
+    finally:
+        del os.environ["ALAN_TPU_NO_SMALLK_CHAIN"]
+    xg = ms.clone().requires_grad_(True)
+    y = xg
+    while y.shape[1] != 1:
+        y = sk.reference_level(y)
+    loss = y.sum()
+    plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(loss, xg, retain_graph=True),
+                           reps=5, inner=1)
+    del loss, y, xg
+
+    B, T, K = COVID_CHAIN
+    pairs = sum(_levels(T))                 # 108 pair products per chain
+    slab = 4 * B * K * K                    # one operator of every chain, bytes
+    fwd_bound, fwd_by = bound(3 * pairs * slab, 2.0 * pairs * B * K ** 3)
+    bwd_bound, bwd_by = bound(5 * pairs * slab, 6.0 * pairs * B * K ** 3)
+    emit({"phase": "kernels", "kernel": "smallk_logmmexp", "case": "timing",
+          "chains_T_K": list(COVID_CHAIN), "levels": len(_levels(T)),
+          "pair_products": pairs, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+          "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
+          "dense_route_fwd_ms": dense_fwd_ms,
+          "fwd_bound_ms": fwd_bound, "bwd_bound_ms": bwd_bound})
+    return {
+        "fwd": dict(max_abs_err=main["out"]["max_abs_err"], ms=fwd_ms,
+                    plain_ms=plain_fwd_ms, bound_ms=fwd_bound, bound_by=fwd_by,
+                    dense_route_ms=dense_fwd_ms),
+        "bwd": dict(max_abs_err=main["dms"]["max_abs_err"], ms=bwd_ms,
+                    plain_ms=plain_bwd_ms, bound_ms=bwd_bound, bound_by=bwd_by,
+                    dense_route_ms=None),
+    }
+
+
+def _check_fused(tag, shape, seed, inf=False):
+    import numpy as np
+    import torch
+    from alan_tpu_torch.ops import logmmexp_kernel as lk
+    nb, M, K, N = shape
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((nb, M, K), dtype=np.float32) * 3
+    B = rng.standard_normal((nb, K, N), dtype=np.float32) * 3
+    if inf:
+        A[:, ::7] = -np.inf
+        B[:, :, 5] = -np.inf
+    A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
+    got = lk.logmmexp_fused(A, B)
+    want = lk.reference_logmmexp(A, B)
+    exact = lk.reference_logmmexp(A.double(), B.double())
+    torch.cuda.synchronize()
+    res = {"phase": "kernels", "kernel": "logmmexp", "case": tag,
+           "nb_M_K_N": list(shape), "ok": True}
+    _check(res, "kernels", tag, "out", got, want, exact, 1e-5, 1e-5)
+    if not torch.isfinite(got).all():
+        res["ok"] = False
+        fail("kernels", f"{tag}: non-finite output")
+    emit(res)
+    return res, A, B
+
+
+def phase_fused_kernel():
+    from alan_tpu_torch.ops import logmmexp_kernel as lk
+    _check_fused("ragged", (3, 130, 257, 77), seed=31)
+    _check_fused("inf_rows", (2, 70, 300, 65), seed=32, inf=True)
+    main, A, B = _check_fused("ar1_level", FUSED_MAIN, seed=30)
+    ms = cuda_ms(lambda: lk._launch(A, B))
+    plain_ms = cuda_ms(lambda: lk.reference_logmmexp(A, B), reps=5, inner=1)
+    nb, M, K, N = FUSED_MAIN
+    b, by = bound(4 * nb * (M * K + K * N + M * N), 2.0 * nb * M * K * N)
+    emit({"phase": "kernels", "kernel": "logmmexp", "case": "timing",
+          "nb_M_K_N": list(FUSED_MAIN), "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": b})
+    return dict(max_abs_err=main["out"]["max_abs_err"], ms=ms,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                dense_route_ms=plain_ms)
+
+
+# ---- phases 3 to 7 --------------------------------------------------------------
 
 def _state_finite(state):
     import torch
@@ -223,55 +432,135 @@ def _max_state_diff(a, b):
     return diffs
 
 
-def phase_main_path():
+def _counters():
+    from alan_tpu_torch.ops import logmmexp_kernel as fk
+    from alan_tpu_torch.ops import lowrank_kernel as lk
+    from alan_tpu_torch.ops import smallk_kernel as sk
+    return [(lk, "FWD_LAUNCHES", "lowrank_fwd"), (lk, "BWD_LAUNCHES", "lowrank_bwd"),
+            (sk, "FWD_LAUNCHES", "smallk_fwd"), (sk, "BWD_LAUNCHES", "smallk_bwd"),
+            (fk, "LAUNCHES", "logmmexp")]
+
+
+def zero_counts():
+    for mod, attr, _ in _counters():
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    return {key: getattr(mod, attr) for mod, attr, key in _counters()}
+
+
+def _finite(xs):
+    return all(x == x and abs(x) != float("inf") for x in xs)
+
+
+def _qem_path(phase, problem, K, must_launch, info):
+    """``QEM_STEPS`` timed ``train.qem`` steps after a warm-up, with the
+    launch counters zeroed just before and read after every step: each
+    kernel in ``must_launch`` must run in every step.  Then a profile of
+    two more steps.  Returns (step, state, launches over the timed steps)."""
     import torch
     from alan_tpu_torch import train
-    from alan_tpu_torch.models import movielens as ml
-    from alan_tpu_torch.ops import lowrank as lr
-    from alan_tpu_torch.ops import lowrank_kernel as lk
     from alan_tpu_torch.utils import assert_full_f32
-
-    ps, data, cov = ml.load_data_covariates(seed=0, M=ml.M, N=ml.N, device="cuda")
-    problem = ml.grouped_problem(ps, data, cov, device="cuda")
-    step, state = train.qem(problem, K_MAIN, lr=0.1)
+    step, state = train.qem(problem, K, lr=0.1)
     assert_full_f32(torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(1)
-
     state, _ = step(state, gen)                # warm-up (cuBLAS handles, caches)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    lk.FWD_LAUNCHES = lk.BWD_LAUNCHES = 0
-    lr.CONTRACT_CALLS = 0
-    elbos = []
+    zero_counts()
+    elbos, per_step = [], []
     t0 = time.perf_counter()
     for _ in range(QEM_STEPS):
         state, elbo = step(state, gen)
         elbos.append(elbo)
+        per_step.append(read_counts())
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / QEM_STEPS * 1e3
-    launches = {"fwd": lk.FWD_LAUNCHES, "bwd": lk.BWD_LAUNCHES}
-    contract_calls = lr.CONTRACT_CALLS
+    launches = per_step[-1]
+    steps_without = [k for k in must_launch
+                     if any(b[k] - a[k] < 1 for a, b in
+                            zip([dict.fromkeys(launches, 0)] + per_step, per_step))]
     elbos = [float(e) for e in elbos]
-    res = {"phase": "main_path", "model": "grouped_movielens", "M": ml.M, "N": ml.N,
-           "d_z": ml.d_z, "K": K_MAIN, "steps": QEM_STEPS, "ms_per_step": ms,
-           "elbos": elbos, "launches": launches, "contract_calls": contract_calls,
+    res = {"phase": phase, **info, "K": K, "steps": QEM_STEPS, "ms_per_step": ms,
+           "elbos": elbos, "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "ok": True}
-    if not all(map(lambda e: e == e and abs(e) != float("inf"), elbos)):
+    if not _finite(elbos):
         res["ok"] = False
-        fail("main_path", f"non-finite ELBO {elbos}")
+        fail(phase, f"non-finite ELBO {elbos}")
     if not _state_finite(state):
         res["ok"] = False
-        fail("main_path", "non-finite state")
-    if launches["fwd"] < 1 or launches["bwd"] < 1:
+        fail(phase, "non-finite state")
+    if steps_without:
         res["ok"] = False
-        fail("main_path", f"a kernel never ran on the main path: {launches}")
+        fail(phase, f"{steps_without} did not launch in every step: {per_step}")
     emit(res)
+    _profile_step(phase, step, state, gen, ms)
+    return step, state, launches
 
-    _profile_step(step, state, gen, ms)
+
+def phase_main_path():
+    from alan_tpu_torch.models import movielens as ml
+    ps, data, cov = ml.load_data_covariates(seed=0, M=ml.M, N=ml.N, device="cuda")
+    problem = ml.grouped_problem(ps, data, cov, device="cuda")
+    step, state, launches = _qem_path(
+        "main_path", problem, K_MAIN, ["lowrank_fwd", "lowrank_bwd"],
+        {"model": "grouped_movielens", "M": ml.M, "N": ml.N, "d_z": ml.d_z})
     return problem, step, state, launches
 
 
-def _profile_step(step, state, gen, ms_per_step):
+def phase_covid_main_path():
+    from alan_tpu_torch.models import covid
+    ps, _, data, _, cov, _ = covid.load_data_covariates(seed=0, device="cuda")
+    problem = covid.generate_problem(ps, data, cov, device="cuda")
+    step, state, launches = _qem_path(
+        "covid_main_path", problem, K_COVID, ["smallk_fwd", "smallk_bwd"],
+        {"model": "covid", "nRs": ps["nRs"], "nDs_train": ps["nDs"],
+         "chains": ps["nRs"] * K_COVID})
+    return problem, step, state, launches
+
+
+def phase_ar1_large_k():
+    """ELBO draws of the AR(1) model at K=1000 against its exact Kalman
+    log-likelihood, by the criterion of tests/test_problem_vs_itself.py:
+    the mean of the draws, widened by 6 standard errors and by half the
+    (widened) variance, must bracket it, within a gap of 1 nat."""
+    import numpy as np
+    import torch
+    from alan_tpu_torch.models import ar1
+    problem = ar1.generate_problem("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    float(problem.sample(K_AR1, gen).elbo_nograd())      # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    e = np.array([float(problem.sample(K_AR1, gen).elbo_nograd())
+                  for _ in range(AR1_ELBOS)])
+    ms = (time.perf_counter() - t0) / AR1_ELBOS * 1e3
+    launches = read_counts()
+    n = len(e)
+    mean, var = e.mean(), e.var(ddof=1)
+    se_mean, se_var = np.sqrt(var / n), np.sqrt(2 * var ** 2 / n)
+    max_elbo = mean + 6 * se_mean + (var + 6 * se_var) / 2
+    min_elbo = mean - 6 * se_mean
+    res = {"phase": "ar1_large_k", "K": K_AR1, "T": ar1.T, "draws": n,
+           "ms_per_elbo": ms, "known_elbo": ar1.known_elbo,
+           "elbo_min": float(e.min()), "elbo_max": float(e.max()),
+           "elbo_mean": float(mean), "bracket": [float(min_elbo), float(max_elbo)],
+           "launches": launches, "ok": True}
+    if not (_finite(e) and min_elbo < ar1.known_elbo < max_elbo
+            and max_elbo - min_elbo < 1.0):
+        res["ok"] = False
+        fail("ar1_large_k", f"ELBO bracket {min_elbo, max_elbo} vs exact "
+                            f"{ar1.known_elbo}")
+    if launches["logmmexp"] < AR1_ELBOS:
+        res["ok"] = False
+        fail("ar1_large_k", f"the fused kernel did not run in every ELBO: {launches}")
+    emit(res)
+    return launches
+
+
+def _profile_step(phase, step, state, gen, ms_per_step):
     """Device time by kernel name over two QEM steps (torch.profiler).
 
     Device activity is every CUDA event that is not a user annotation: the
@@ -279,7 +568,7 @@ def _profile_step(step, state, gen, ms_per_step):
     counting those would count the kernels under them twice.  Busy time is
     the union of the activity intervals.  The profiler slows the host, so
     the idle share is given over the profiled window and, with the busy time
-    per step, over the unprofiled step time of the main_path phase."""
+    per step, over the unprofiled step time of the path's phase."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -305,7 +594,7 @@ def _profile_step(step, state, gen, ms_per_step):
     rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
                    for ev in prof.key_averages() if on_device(ev)), reverse=True)
     busy_ms = busy_us / 1e3
-    emit({"phase": "profile", "steps": steps, "wall_ms": wall_ms,
+    emit({"phase": "profile", "of": phase, "steps": steps, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms, "device_events": len(spans),
           "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
           "device_idle_share_unprofiled":
@@ -314,21 +603,24 @@ def _profile_step(step, state, gen, ms_per_step):
                   for us, k, c in rows[:12]]})
 
 
-def phase_cross_check(problem, step, state):
+def phase_cross_check(phase, problem, step, state, K, env):
+    """One update from the same state and injected particles with the
+    kernel route and with the route that ``env`` selects."""
     import torch
     from alan_tpu_torch.sampler import PermutationSampler
     gen = torch.Generator(device="cuda").manual_seed(2)
-    tree, _ = problem.Q._sample(K_MAIN, False, PermutationSampler,
+    tree, _ = problem.Q._sample(K, False, PermutationSampler,
                                 problem.all_platedims, gen, state=state[1])
     (newP_k, newQ_k), elbo_k = step(state, sample=tree)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    os.environ["ALAN_TPU_NO_LAZY_LOWRANK"] = "1"
+    os.environ.update(env)
     try:
         (newP_d, newQ_d), elbo_d = step(state, sample=tree)
         torch.cuda.synchronize()
     finally:
-        del os.environ["ALAN_TPU_NO_LAZY_LOWRANK"]
+        for k in env:
+            del os.environ[k]
     dense_ms = (time.perf_counter() - t0) * 1e3
     elbo_k, elbo_d = float(elbo_k), float(elbo_d)
     rel = abs(elbo_k - elbo_d) / abs(elbo_d)
@@ -337,13 +629,14 @@ def phase_cross_check(problem, step, state):
         torch.allclose(v.data, newQ_d[g][k].with_dims_front(list(v.dims)).data,
                        rtol=1e-4, atol=1e-4)
         for g in ("qem_params", "qem_means") for k, v in newQ_k[g].items())
-    res = {"phase": "cross_check", "elbo_kernel": elbo_k, "elbo_dense": elbo_d,
-           "elbo_rel_diff": rel, "max_state_abs_diff": max(diffs.values()),
+    res = {"phase": phase, "other_route": env, "elbo_kernel": elbo_k,
+           "elbo_dense": elbo_d, "elbo_rel_diff": rel,
+           "max_state_abs_diff": max(diffs.values()),
            "worst_state_entry": max(diffs, key=diffs.get),
            "dense_step_ms_one_call": dense_ms,
            "ok": rel <= 1e-4 and state_ok}
     if not res["ok"]:
-        fail("cross_check", f"ELBO rel diff {rel}, state diffs {diffs}")
+        fail(phase, f"ELBO rel diff {rel}, state diffs {diffs}")
     emit(res)
 
 
@@ -369,19 +662,39 @@ def main():
 
     card = nvidia_smi_line()
     phase_build()
-    timing = phase_kernels()
-    problem, step, state, launches = phase_main_path()
-    phase_cross_check(problem, step, state)
+    lowrank = phase_kernels()
+    smallk = phase_chain_kernels()
+    fused = phase_fused_kernel()
+    problem, step, state, ml_launches = phase_main_path()
+    phase_cross_check("cross_check", problem, step, state, K_MAIN,
+                      {"ALAN_TPU_NO_LAZY_LOWRANK": "1"})
+    del problem, step, state
+    problem, step, state, covid_launches = phase_covid_main_path()
+    phase_cross_check("covid_cross_check", problem, step, state, K_COVID,
+                      {"ALAN_TPU_NO_SMALLK_CHAIN": "1"})
+    del problem, step, state
+    ar1_launches = phase_ar1_large_k()
 
+    smallk_src = "alan_tpu_torch/csrc/smallk_logmmexp.cu"
     emit({"kernels": [
         dict(name="lowrank_lse_fwd", route="cuda",
              source="alan_tpu_torch/csrc/lowrank_lse.cu",
              replaces="alan_tpu/ops/pallas_lowrank.py:215",
-             launches=launches["fwd"], library_ms=None, **timing["fwd"]),
+             launches=ml_launches["lowrank_fwd"], library_ms=None, **lowrank["fwd"]),
         dict(name="lowrank_lse_bwd", route="cuda",
              source="alan_tpu_torch/csrc/lowrank_lse.cu",
              replaces="alan_tpu/ops/pallas_lowrank.py:298",
-             launches=launches["bwd"], library_ms=None, **timing["bwd"]),
+             launches=ml_launches["lowrank_bwd"], library_ms=None, **lowrank["bwd"]),
+        dict(name="smallk_logmmexp_fwd", route="cuda", source=smallk_src,
+             replaces="alan_tpu/ops/pallas_smallk.py:66",
+             launches=covid_launches["smallk_fwd"], library_ms=None, **smallk["fwd"]),
+        dict(name="smallk_logmmexp_bwd", route="cuda", source=smallk_src,
+             replaces="alan_tpu/ops/pallas_smallk.py:80",
+             launches=covid_launches["smallk_bwd"], library_ms=None, **smallk["bwd"]),
+        dict(name="logmmexp_fused", route="cuda",
+             source="alan_tpu_torch/csrc/logmmexp.cu",
+             replaces="alan_tpu/ops/pallas_logmmexp.py:28",
+             launches=ar1_launches["logmmexp"], library_ms=None, **fused),
     ]})
     print(card, flush=True)
     if FAILURES:

@@ -12,7 +12,14 @@ and no JAX it runs without the suite's conftest:
   ``tests/test_lowrank_lazy.py``);
 * one grouped-MovieLens QEM step on the card (lazy path forced, so z's
   factor runs through the kernels) against the same step on the CPU (the
-  plain version), from the same particles.
+  plain version), from the same particles;
+* the small-K chain kernels (one tree level forward and backward, and whole
+  chains) against ``reference_level`` on the same CUDA tensors, at covid's
+  chain (2760 chains, T = 109, K = 30), K = 2, K = 100, odd T and -inf
+  entries: rtol/atol 1e-5 forward, rtol 1e-4 / atol 1e-5 gradients; and
+  their refusal of K out of range;
+* the fused log-matmul kernel against ``reference_logmmexp``: (2, 1000,
+  1000), a ragged shape and -inf rows, rtol/atol 1e-5.
 """
 import numpy as np
 import pytest
@@ -22,7 +29,9 @@ from alan_tpu_torch import train
 from alan_tpu_torch.dims import DT
 from alan_tpu_torch.models import movielens as tml
 from alan_tpu_torch.ops import lowrank as tlr
+from alan_tpu_torch.ops import logmmexp_kernel as tlk
 from alan_tpu_torch.ops import lowrank_kernel as tk
+from alan_tpu_torch.ops import smallk_kernel as tsk
 from alan_tpu_torch.sampler import PermutationSampler
 
 pytestmark = pytest.mark.cuda
@@ -134,3 +143,82 @@ def test_qem_step_on_card_matches_cpu(card, monkeypatch):
         for k, v in q_cpu[group].items():
             w = q_card[group][k].with_dims_front(list(v.dims))
             torch.testing.assert_close(w.data.cpu(), v.data, rtol=1e-4, atol=1e-4)
+
+
+# ---- the small-K chain kernels ------------------------------------------------
+
+SMALLK_CASES = [
+    ((2760, 109, 30), False),   # covid's full chain
+    ((130, 8, 2), False),       # K = 2
+    ((16, 5, 100), False),      # K = 100, odd T
+    ((40, 7, 30), True),        # -inf entries
+    ((3, 4, 128), False),       # the largest K the kernels take
+]
+
+
+def _chain_operands(shape, inf, seed, device):
+    B, T, K = shape
+    rng = np.random.default_rng(seed)
+    ms = (rng.standard_normal((B, T, K, K)) * 2 - 1).astype(np.float32)
+    if inf:
+        ms[:, 2, :, 3] = -np.inf
+        ms[:, 3, 1, :] = -np.inf
+    W = rng.standard_normal((B, K, K)).astype(np.float32)
+    return torch.tensor(ms, device=device), torch.tensor(W, device=device)
+
+
+def _chain_value_and_grad(level, ms, W):
+    """The chain's value and d(sum(chain * W))/d ms, with ``level`` as the
+    tree level."""
+    x = ms.clone().requires_grad_(True)
+    y = x
+    while y.shape[1] != 1:
+        y = level(y)
+    (g,) = torch.autograd.grad((y[:, 0] * W).sum(), [x])
+    return y[:, 0].detach(), g
+
+
+@pytest.mark.parametrize("shape,inf", SMALLK_CASES)
+def test_smallk_chain_matches_plain_version(card, shape, inf):
+    ms, W = _chain_operands(shape, inf, 11, card)
+    launches = (tsk.FWD_LAUNCHES, tsk.BWD_LAUNCHES)
+    got, ggot = _chain_value_and_grad(tsk.logmmexp_level, ms, W)
+    torch.cuda.synchronize()
+    levels = (tsk.FWD_LAUNCHES - launches[0], tsk.BWD_LAUNCHES - launches[1])
+    assert levels[0] == levels[1] == int(np.ceil(np.log2(shape[1])))
+    want, gwant = _chain_value_and_grad(tsk.reference_level, ms, W)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ggot, gwant, rtol=1e-4, atol=1e-5)
+
+
+def test_smallk_kernels_refuse_k_out_of_range(card):
+    for K in (0, tsk.MAX_K + 1):
+        x = torch.zeros((2, 4, K, K), device=card)
+        with pytest.raises(ValueError, match="K="):
+            tsk.logmmexp_level(x)
+    with pytest.raises(ValueError, match="float32"):
+        tsk.logmmexp_level(torch.zeros((2, 4, 5, 5), device=card, dtype=torch.float64))
+
+
+# ---- the fused log-matmul kernel ----------------------------------------------
+
+@pytest.mark.parametrize("shape,inf", [((2, 1000, 1000, 1000), False),
+                                       ((3, 130, 257, 77), False),
+                                       ((2, 70, 300, 65), True)])
+def test_fused_logmmexp_matches_plain_version(card, shape, inf):
+    nb, M, K, N = shape
+    rng = np.random.default_rng(13)
+    A = (rng.standard_normal((nb, M, K)) * 3).astype(np.float32)
+    B = (rng.standard_normal((nb, K, N)) * 3).astype(np.float32)
+    if inf:
+        A[:, ::7] = -np.inf
+        B[:, :, 5] = -np.inf
+    A, B = torch.tensor(A, device=card), torch.tensor(B, device=card)
+    launches = tlk.LAUNCHES
+    got = tlk.logmmexp_fused(A, B)
+    torch.cuda.synchronize()
+    assert tlk.LAUNCHES == launches + 1
+    want = tlk.reference_logmmexp(A, B)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

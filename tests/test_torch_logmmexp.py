@@ -1,0 +1,203 @@
+"""The port's log-space matmuls (``ops/logmmexp.py`` and the plain versions
+of its two kernels) against ``alan_tpu``'s.
+
+Inputs come from numpy seeds; the port runs on the CPU.
+
+* ``logmmexp`` against ``alan_tpu.ops.logmmexp.logmmexp(allow_pallas=False)``
+  and ``logmmexp_pallas(interpret=True)``: rtol/atol 1e-5, as
+  ``tests/test_ops.py``;
+* ``chain_logmmexp`` (the small-K route and the dense route) against
+  ``alan_tpu``'s dense ``chain_logmmexp`` and ``chain_logmmexp_lanes`` in
+  interpret mode, on the shapes of ``tests/test_ops.py:176-222`` (odd T,
+  K=2, K=33, extra batch dims, -inf entries): values 1e-5; gradients rtol
+  1e-4 / atol 1e-5 against the dense path and 3e-3 / 1e-5 against the lanes
+  path, as ``tests/test_ops.py:211``;
+* the routing rules and the wrappers' refusals.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from alan_tpu.ops.logmmexp import chain_logmmexp as j_chain
+from alan_tpu.ops.logmmexp import logmmexp as j_logmmexp
+from alan_tpu.ops.pallas_logmmexp import logmmexp_pallas as j_logmmexp_pallas
+from alan_tpu.ops.pallas_smallk import chain_logmmexp_lanes as j_chain_lanes
+from alan_tpu_torch.ops import logmmexp as tlm
+from alan_tpu_torch.ops import logmmexp_kernel as tlk
+from alan_tpu_torch.ops import smallk_kernel as tsk
+from test_torch_harness import Env
+
+DENSE_CHAIN = dict(ALAN_TPU_NO_SMALLK_CHAIN=1)
+
+
+def _t(a, grad=False):
+    return torch.tensor(np.asarray(a), requires_grad=grad)
+
+
+# ---- logmmexp -------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(3, 6, 8, 5), (2, 40, 130, 17), (1, 64, 200, 64)])
+def test_logmmexp_matches_jax(shape):
+    """K = 8 takes the dense route, K >= 128 the fused kernel's plain version."""
+    b, M, K, N = shape
+    rng = np.random.default_rng(K)
+    A = (rng.standard_normal((b, M, K)) * 3).astype(np.float32)
+    B = (rng.standard_normal((b, K, N)) * 3).astype(np.float32)
+    A[0, 1] = -np.inf                       # a row with no mass
+    B[-1, :, 2] = -np.inf                   # a column with no mass
+    got = tlm.logmmexp(_t(A), _t(B)).numpy()
+    want = np.asarray(j_logmmexp(jnp.asarray(A), jnp.asarray(B), allow_pallas=False))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    if K >= 128:
+        fused = np.asarray(j_logmmexp_pallas(jnp.asarray(A), jnp.asarray(B),
+                                             interpret=True))
+        np.testing.assert_allclose(got, fused, rtol=1e-5, atol=1e-5)
+
+
+def test_fused_gradient_matches_jax():
+    rng = np.random.default_rng(3)
+    A = rng.standard_normal((2, 12, 130)).astype(np.float32)
+    B = rng.standard_normal((2, 130, 9)).astype(np.float32)
+    W = rng.standard_normal((2, 12, 9)).astype(np.float32)
+    gA, gB = jax.grad(lambda a, b: jnp.sum(j_logmmexp(a, b, allow_pallas=False) * W),
+                      argnums=(0, 1))(jnp.asarray(A), jnp.asarray(B))
+    tA, tB = _t(A, True), _t(B, True)
+    (tlm.logmmexp(tA, tB) * _t(W)).sum().backward()
+    np.testing.assert_allclose(tA.grad.numpy(), np.asarray(gA), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tB.grad.numpy(), np.asarray(gB), rtol=1e-4, atol=1e-5)
+
+
+# ---- chain_logmmexp -------------------------------------------------------------
+
+CHAIN_SHAPES = [
+    (35, 5, 30),     # covid-like K, small batch, odd T
+    (300, 4, 7),     # a batch that pads the TPU's lanes
+    (130, 8, 2),     # K=2, power-of-two T
+    (128, 3, 33),    # odd K
+]
+
+
+def _chain_input(shape, seed):
+    B, T, K = shape
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, T, K, K)) * 2 - 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", CHAIN_SHAPES)
+def test_chain_matches_jax_dense(shape):
+    ms = _chain_input(shape, 0)
+    want = np.asarray(j_chain(jnp.asarray(ms)))
+    got = tlm.chain_logmmexp(_t(ms)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    with Env(**DENSE_CHAIN):
+        dense = tlm.chain_logmmexp(_t(ms)).numpy()
+    np.testing.assert_allclose(dense, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", CHAIN_SHAPES[:2])
+def test_chain_matches_jax_lanes_kernel(shape):
+    ms = _chain_input(shape, 1)
+    want = np.asarray(j_chain_lanes(jnp.asarray(ms), interpret=True))
+    got = tlm.chain_logmmexp(_t(ms)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_chain_multi_batch_dims_and_inf():
+    rng = np.random.default_rng(2)
+    ms = rng.standard_normal((5, 7, 9, 13, 13)).astype(np.float32)
+    ms[:, :, 2, :, 3] = -np.inf
+    ms[:, :, 3, 1, :] = -np.inf
+    want = np.asarray(j_chain(jnp.asarray(ms)))
+    got = tlm.chain_logmmexp(_t(ms)).numpy()
+    assert got.shape == want.shape == (5, 7, 13, 13)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_chain_gradient_matches_jax():
+    """Against the dense path at 1e-4 / 1e-5 and the lanes kernel (interpret
+    mode) at 3e-3 / 1e-5."""
+    rng = np.random.default_rng(4)
+    ms = (rng.standard_normal((40, 6, 11, 11)) * 2).astype(np.float32)
+    W = rng.standard_normal((40, 11, 11)).astype(np.float32)
+    g_dense = jax.grad(lambda m: jnp.sum(j_chain(m) * W))(jnp.asarray(ms))
+    g_lanes = jax.grad(lambda m: jnp.sum(j_chain_lanes(m, True) * W))(jnp.asarray(ms))
+    for env in ({}, DENSE_CHAIN):
+        t = _t(ms, True)
+        with Env(**env):
+            (tlm.chain_logmmexp(t) * _t(W)).sum().backward()
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g_dense),
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g_lanes),
+                                   rtol=3e-3, atol=1e-5)
+
+
+def test_chain_of_large_k_takes_the_fused_route(monkeypatch):
+    """K >= 128 above the small-K limit: every tree node goes to the fused
+    kernel's wrapper (its plain version on the CPU), as at the AR(1) model's
+    K = 1000."""
+    calls = []
+    orig = tlk.logmmexp_fused
+    monkeypatch.setattr(tlm, "logmmexp_fused",
+                        lambda A, B: calls.append(tuple(A.shape)) or orig(A, B))
+    ms = _chain_input((1, 4, 130), 5)[0]
+    got = tlm.chain_logmmexp(_t(ms)).numpy()
+    assert calls == [(2, 130, 130), (1, 130, 130)]
+    np.testing.assert_allclose(got, np.asarray(j_chain(jnp.asarray(ms))),
+                               rtol=1e-5, atol=1e-5)
+
+
+# ---- routing and refusals -------------------------------------------------------
+
+@pytest.mark.parametrize("shape,dtype,env,want", [
+    ((2, 4, 30, 30), torch.float32, {}, True),
+    ((4, 30, 30), torch.float32, {}, True),            # no batch: still a chain
+    ((2, 4, 101, 101), torch.float32, {}, False),    # K above the default 100
+    ((2, 4, 100, 100), torch.float32, {}, True),       # K at the limit
+    ((2, 4, 1, 1), torch.float32, {}, False),        # K = 1
+    ((2, 1, 30, 30), torch.float32, {}, False),      # T = 1
+    ((2, 4, 30, 30), torch.float64, {}, False),
+    ((2, 4, 30, 30), torch.float32, {"ALAN_TPU_NO_SMALLK_CHAIN": 1}, False),
+    ((2, 4, 300, 300), torch.float64, {"ALAN_TPU_SMALLK_CHAIN": 1}, True),
+    ((2, 4, 30, 30), torch.float32,
+     {"ALAN_TPU_SMALLK_CHAIN": 1, "ALAN_TPU_NO_SMALLK_CHAIN": 1}, False),
+])
+def test_smallk_routing(shape, dtype, env, want):
+    with Env(**env):
+        assert tlm._use_smallk(torch.zeros(shape, dtype=dtype)) is want
+
+
+def test_smallk_refuses_non_float32_when_forced():
+    with Env(ALAN_TPU_SMALLK_CHAIN=1):
+        with pytest.raises(TypeError, match="float32"):
+            tlm.chain_logmmexp(torch.zeros((3, 4, 5, 5), dtype=torch.float64))
+
+
+def test_kernel_launchers_refuse_cpu_tensors():
+    """The launchers take CUDA tensors only: a CPU tensor is never handed to
+    a kernel (the wrappers give it the plain version instead)."""
+    x = torch.zeros((2, 4, 5, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        tsk._launch_fwd(x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tsk._launch_bwd(x, torch.zeros((2, 2, 5, 5)))
+    with pytest.raises(ValueError, match="CUDA"):
+        tlk._launch(torch.zeros((1, 3, 4)), torch.zeros((1, 4, 2)))
+    counts = (tsk.FWD_LAUNCHES, tsk.BWD_LAUNCHES, tlk.LAUNCHES)
+    tsk.logmmexp_level(x)
+    tlk.logmmexp_fused(torch.zeros((1, 3, 4)), torch.zeros((1, 4, 2)))
+    assert (tsk.FWD_LAUNCHES, tsk.BWD_LAUNCHES, tlk.LAUNCHES) == counts
+
+
+def test_level_layout_and_remainder():
+    """One level of (nB, n, K, K): pairs (2l, 2l+1), the odd remainder
+    carried to the end."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((3, 5, 4, 4)).astype(np.float32)
+    out = tsk.reference_level(_t(x)).numpy()
+    assert out.shape == (3, 3, 4, 4)
+    np.testing.assert_array_equal(out[:, 2], x[:, 4])
+    want = np.asarray(j_logmmexp(jnp.asarray(x[:, 2]), jnp.asarray(x[:, 3]),
+                                 allow_pallas=False))
+    np.testing.assert_allclose(out[:, 1], want, rtol=1e-5, atol=1e-5)
