@@ -6,7 +6,8 @@ The chain over T is reduced with a balanced pairwise tree, the same tree as
 next).  Routes, as ``alan_tpu`` takes them (``logmmexp.py:15-101``):
 
 * a float32 chain with T >= 2 and 2 <= K <= 100 runs the small-K chain
-  kernel, one launch per tree level (``ops/smallk_kernel.py``);
+  kernels, several tree levels per launch as ``smallk_kernel.launch_plan``
+  says (``ops/smallk_kernel.py``);
 * otherwise each tree node whose contracted dim is 128 or more, in float32,
   runs the fused log-matmul kernel (``ops/logmmexp_kernel.py``);
 * anything else takes the dense torch route: max-shifted exponentials and

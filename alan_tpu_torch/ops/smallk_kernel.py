@@ -7,25 +7,31 @@ Covid's ``log_infected`` chain is ``nRs * K_npis = 2760`` chains of T = 109
 operators of 30 x 30 each at K = 30: one tree level is thousands of tiny
 products, which a batched matmul library call serves poorly.
 
-On CUDA tensors each tree level is one launch of a hand-written kernel for
-Hopper (``alan_tpu_torch/csrc/smallk_logmmexp.cu``):
+On CUDA tensors the tree runs as a few launches of hand-written kernels for
+Hopper (``alan_tpu_torch/csrc/smallk_logmmexp.cu``), each taking m levels
+at once: a block reduces an aligned segment of ``2^m`` consecutive operators
+of one chain in shared memory, so a launch turns ``(nB, n, K, K)`` into
+``(nB, ceil(n / 2^m), K, K)``.  Because the tree carries an odd remainder
+to the end of the next level, aligned segments perform exactly the pair
+products of m single levels, in the same order.  :func:`launch_plan` picks
+m for each launch from T and K (covid: 109 -> 14 -> 2 -> 1, three launches
+instead of seven levels):
 
 * the forward kernel replaces ``_fwd_kernel`` (``pallas_smallk.py:66``);
 * the backward kernel replaces ``_bwd_kernel`` (``pallas_smallk.py:80``):
-  it recomputes the product and returns
-  ``dA = ea * ((g / (c + tiny)) . eb^T)`` and ``dB = eb * (ea^T . (g / (c + tiny)))``.
+  it recomputes the segment's inner levels and returns
+  ``dA = ea * ((g / (c + tiny)) . eb^T)`` and ``dB = eb * (ea^T . (g / (c + tiny)))``
+  level by level down to the segment's operators.
 
-A level works on the tree's own layout ``(nB, n, K, K)``: the pair
-``(2l, 2l + 1)`` lies side by side, so the kernel reads it in place, and the
-odd remainder of a level is one copy.  At covid's chain both kernels are
-bound by memory (5 FLOP per byte at K = 30); the source note in
-``smallk_logmmexp.cu`` has the design.  They take 1 <= K <= 128
-(:data:`MAX_K`, the backward's shared memory) and raise on anything else.
+Each launch is one :class:`torch.autograd.Function` that saves only its own
+input.  The kernels take 1 <= K <= 128 (:data:`MAX_K`, the backward's
+shared memory at m = 1) and raise on anything else; the source note in
+``smallk_logmmexp.cu`` has the design.
 
-On CPU tensors the plain version, :func:`reference_level`, runs instead,
-under ordinary autograd: the same tree order and the same finite-guarded
-shifts and ``log(c + tiny)`` as ``ops.logmmexp.logmmexp``.  A CUDA tensor
-gets the kernel or an error.
+On CPU tensors the plain version, :func:`reference_segment`, runs the same
+launch plan under ordinary autograd: the same tree order and the same
+finite-guarded shifts and ``log(c + tiny)`` as ``ops.logmmexp.logmmexp``.
+A CUDA tensor gets the kernels or an error.
 """
 from __future__ import annotations
 
@@ -33,95 +39,165 @@ import torch
 
 from .native import INT, PTR, check_status, load, ptr, stream
 
-#: launches of the forward / backward kernel (one per tree level that
-#: reaches the card; the plain version on the CPU does not count)
+#: launches of the forward / backward kernel (one per entry of the launch
+#: plan that reaches the card; the plain version on the CPU does not count)
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-#: largest K the kernels take (the backward holds 3 K^2 floats in shared
-#: memory: 197 KB at K = 128 of the 227 KB a block may use)
+#: largest K the kernels take (the backward at m = 1 then holds three
+#: operators in the direct layout: 198 KB of the 227 KB a block may use)
 MAX_K = 128
+#: most tree levels one launch takes (segments of at most 32 operators)
+MAX_M = 5
 _INT_MAX = 2 ** 31 - 1
 _TINY = torch.finfo(torch.float32).tiny
 
+#: the H100's shared memory: what a block may use, what an SM has, and what
+#: the runtime keeps back per block
+SMEM_PER_BLOCK = 232448
+SMEM_PER_SM = 233472
+SMEM_RESERVED = 1024
+_HEAD, _PAD = 4, 8   # floats before and after a kernel's layout (smallk_logmmexp.cu)
+
 _SIGNATURES = {
-    "smallk_logmmexp_fwd": [PTR, PTR, INT, INT, INT, PTR],
-    "smallk_logmmexp_bwd": [PTR, PTR, PTR, INT, INT, INT, PTR],
+    "smallk_segment_fwd": [PTR, PTR, INT, INT, INT, INT, INT, PTR],
+    "smallk_segment_bwd": [PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
+    "smallk_smem_bytes": [INT, INT, INT, INT],
+    "smallk_log_mismatches": [INT, INT, PTR, PTR],
 }
 
 
-def _check_level(x):
-    """Raise on a level the kernels do not take; returns (nB, n, K)."""
+def segment_smem(K: int, m: int, backward: bool, direct: int) -> int:
+    """Bytes of shared memory a block of the forward or backward kernel
+    takes at K and m, in the staged (``direct=0``) or direct (``direct=1``)
+    layout of ``smallk_logmmexp.cu``."""
+    S, slot = 1 << m, K * (K if direct else K | 1)
+    stage = K * K * S + 8
+    if backward:
+        slots = (0 if direct else S) + (S - 2) + (S - 1)
+    else:
+        slots = (0 if direct else S) + (S // 2 if m >= 2 else 0)
+    return 4 * (_HEAD + stage + slots * slot + S * K + _PAD)
+
+
+def layout_for(K: int, m: int, backward: bool) -> int:
+    """0, the staged layout (the next segment loads while a block reduces
+    this one), where it fits in a block's shared memory, else 1, the
+    direct layout."""
+    return 0 if segment_smem(K, m, backward, 0) <= SMEM_PER_BLOCK else 1
+
+
+def _blocks_per_sm(nbytes: int) -> int:
+    return SMEM_PER_SM // (nbytes + SMEM_RESERVED)
+
+
+def segment_levels(n: int, K: int) -> int:
+    """m for one launch over n >= 2 operators: the largest m (at most
+    ceil(log2 n) and :data:`MAX_M`) at which two blocks of the backward
+    still fit on an SM, else 1."""
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"K={K}: the small-K kernels take 1 <= K <= {MAX_K}")
+    for m in range(min(MAX_M, (n - 1).bit_length()), 1, -1):
+        if _blocks_per_sm(segment_smem(K, m, True, layout_for(K, m, True))) >= 2:
+            return m
+    return 1
+
+
+def launch_plan(T: int, K: int) -> list[int]:
+    """The m of each launch that reduces a chain of T operators to one."""
+    plan = []
+    while T > 1:
+        m = segment_levels(T, K)
+        plan.append(m)
+        T = (T + (1 << m) - 1) >> m
+    return plan
+
+
+def log_mismatches(device="cuda") -> int:
+    """Floats x in [FLT_MIN, 128] (every value ``c + tiny`` takes for K <=
+    128) where the kernels' logarithm differs from ``logf`` on the card."""
+    count = torch.zeros(1, dtype=torch.int32, device=device)
+    lib = load("smallk_logmmexp", _SIGNATURES)
+    with torch.cuda.device(count.device):
+        rc = lib.smallk_log_mismatches(0x00800000, 0x43000000, ptr(count), stream(count))
+    check_status(rc, "smallk_log_mismatches")
+    return int(count.item())
+
+
+def _check_segment(x, m):
+    """Raise on a launch the kernels do not take; returns (nB, n, K)."""
     if x.device.type != "cuda":
         raise ValueError(f"the small-K kernels take CUDA tensors, not {x.device}")
     if x.dtype != torch.float32:
         raise ValueError(f"the small-K kernels take float32, not {x.dtype}")
     if x.dim() != 4 or x.shape[2] != x.shape[3]:
-        raise ValueError(f"a level is (nB, n, K, K), got {tuple(x.shape)}")
+        raise ValueError(f"a chain is (nB, n, K, K), got {tuple(x.shape)}")
     if not x.is_contiguous():
-        raise ValueError("a level must be contiguous")
+        raise ValueError("a chain must be contiguous")
     nB, n, K, _ = x.shape
     if not 1 <= K <= MAX_K:
         raise ValueError(f"K={K}: the small-K kernels take 1 <= K <= {MAX_K}")
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"m={m}: a launch takes 1 to {MAX_M} tree levels")
     if n < 2 or nB < 1:
-        raise ValueError(f"a level needs n >= 2 operators and a chain, got "
+        raise ValueError(f"a launch needs n >= 2 operators and a chain, got "
                          f"nB={nB}, n={n}")
-    if nB * (n // 2) > _INT_MAX:
-        raise ValueError(f"nB * n/2 = {nB * (n // 2)} blocks: above the grid")
+    if nB * ((n + (1 << m) - 1) >> m) > _INT_MAX:
+        raise ValueError(f"nB={nB}, n={n}, m={m}: more segments than a launch takes")
     return nB, n, K
 
 
-def _launch_fwd(x):
-    """One level forward on the card: (nB, n, K, K) -> (nB, ceil(n/2), K, K)."""
+def _launch_fwd(x, m):
+    """One launch forward on the card: (nB, n, K, K) -> (nB, ceil(n/2^m), K, K)."""
     global FWD_LAUNCHES
-    nB, n, K = _check_level(x)
-    out = torch.empty((nB, (n + 1) // 2, K, K), device=x.device,
+    nB, n, K = _check_segment(x, m)
+    out = torch.empty((nB, (n + (1 << m) - 1) >> m, K, K), device=x.device,
                       dtype=torch.float32)
     lib = load("smallk_logmmexp", _SIGNATURES)
     with torch.cuda.device(x.device):
-        rc = lib.smallk_logmmexp_fwd(ptr(x), ptr(out), nB, n, K, stream(x))
-    check_status(rc, "smallk_logmmexp_fwd")
+        rc = lib.smallk_segment_fwd(ptr(x), ptr(out), nB, n, K, m,
+                                    layout_for(K, m, False), stream(x))
+    check_status(rc, "smallk_segment_fwd")
     FWD_LAUNCHES += 1
-    if n % 2:
-        out[:, -1].copy_(x[:, -1])
     return out
 
 
-def _launch_bwd(x, g):
-    """One level backward on the card: the gradient of the level's input
+def _launch_bwd(x, g, m):
+    """One launch backward on the card: the gradient of the launch's input
     from ``g``, the gradient of its output."""
     global BWD_LAUNCHES
-    nB, n, K = _check_level(x)
+    nB, n, K = _check_segment(x, m)
+    shape = (nB, (n + (1 << m) - 1) >> m, K, K)
     if (g.device != x.device or g.dtype != torch.float32 or not g.is_contiguous()
-            or tuple(g.shape) != (nB, (n + 1) // 2, K, K)):
-        raise ValueError(f"g must be a contiguous float32 {(nB, (n + 1) // 2, K, K)} "
-                         f"tensor on {x.device}, got {tuple(g.shape)}")
+            or tuple(g.shape) != shape):
+        raise ValueError(f"g must be a contiguous float32 {shape} tensor on "
+                         f"{x.device}, got {tuple(g.shape)}")
     dx = torch.empty_like(x)
     lib = load("smallk_logmmexp", _SIGNATURES)
     with torch.cuda.device(x.device):
-        rc = lib.smallk_logmmexp_bwd(ptr(x), ptr(g), ptr(dx), nB, n, K, stream(x))
-    check_status(rc, "smallk_logmmexp_bwd")
+        rc = lib.smallk_segment_bwd(ptr(x), ptr(g), ptr(dx), nB, n, K, m,
+                                    layout_for(K, m, True), stream(x))
+    check_status(rc, "smallk_segment_bwd")
     BWD_LAUNCHES += 1
-    if n % 2:
-        dx[:, -1].copy_(g[:, -1])
     return dx
 
 
-class _Level(torch.autograd.Function):
+class _Segment(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, m):
+        ctx.m = m
         ctx.save_for_backward(x)
-        return _launch_fwd(x)
+        return _launch_fwd(x, m)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        return _launch_bwd(x, g.contiguous())
+        return _launch_bwd(x, g.contiguous(), ctx.m), None
 
 
 def reference_level(x):
-    """Plain PyTorch version of one level (``ops.logmmexp.logmmexp`` on the
-    even and odd operators, the odd remainder carried over)."""
+    """Plain PyTorch version of one tree level (``ops.logmmexp.logmmexp`` on
+    the even and odd operators, the odd remainder carried over)."""
     n = x.shape[1]
     A, B = x[:, 0:n - n % 2:2], x[:, 1:n:2]
     a_max = torch.amax(A, dim=-1, keepdim=True).detach()
@@ -135,23 +211,46 @@ def reference_level(x):
     return out
 
 
-def logmmexp_level(x):
-    """One tree level of (nB, n, K, K): the kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
+def _reduce(x):
+    while x.shape[1] != 1:
+        x = reference_level(x)
+    return x
+
+
+def reference_segment(x, m):
+    """Plain PyTorch version of one launch: each aligned segment of ``2^m``
+    operators of ``x`` (nB, n, K, K), the short last one included, reduced
+    to one operator by :func:`reference_level`."""
+    nB, n, K, _ = x.shape
+    S = 1 << m
+    full = n // S
+    parts = []
+    if full:
+        head = x[:, :full * S].reshape(nB * full, S, K, K)
+        parts.append(_reduce(head).reshape(nB, full, K, K))
+    if n % S:
+        parts.append(_reduce(x[:, full * S:]))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def logmmexp_segment(x, m):
+    """One launch of the plan over (nB, n, K, K): the kernels for a CUDA
+    tensor, the plain version for a CPU tensor."""
     if x.device.type == "cpu":
-        return reference_level(x)
+        return reference_segment(x, m)
     if x.device.type != "cuda":
         raise ValueError(f"the small-K chain runs on CUDA or the CPU, not {x.device}")
-    return _Level.apply(x.contiguous())
+    return _Segment.apply(x.contiguous(), m)
 
 
 def chain_logmmexp_smallk(ms):
     """Reduce ``ms[..., T, K, K]`` over T with the balanced pairwise tree of
-    ``ops.logmmexp.chain_logmmexp``, one :func:`logmmexp_level` per level."""
+    ``ops.logmmexp.chain_logmmexp``, one :func:`logmmexp_segment` per entry
+    of :func:`launch_plan`."""
     *batch, T, K, _ = ms.shape
     if ms.dtype != torch.float32:
         raise TypeError(f"the small-K chain takes float32, got {ms.dtype}")
     x = ms.reshape(-1, T, K, K)
-    while x.shape[1] != 1:
-        x = logmmexp_level(x)
+    for m in launch_plan(T, K):
+        x = logmmexp_segment(x, m)
     return x[:, 0].reshape(*batch, K, K)

@@ -22,11 +22,16 @@ without its final line:
                 CUDA events, median of several runs, beside the dense
                 two-call yardstick (``torch.baddbmm`` + ``torch.logsumexp``,
                 never called by the port).
-                The small-K chain kernels (forward and backward, a tree level
-                per launch) on whole chains: covid's (2760 chains, T = 109,
-                K = 30), K = 2, K = 100 with odd T, -inf entries: forward
-                rtol/atol 1e-5, gradients rtol 1e-4 / atol 1e-5 (with the
-                same f64 rule).  The fused log-matmul kernel at (2, 1000,
+                The small-K chain kernels (forward and backward, several tree
+                levels per launch, as the launch plan says) on whole chains
+                against the level-by-level plain version: covid's (2760
+                chains, T = 109, K = 30), T at and around covid's segment of
+                8 (7, 8, 9, 17, and 3 < 8), K = 45 (segments of 4), K = 2,
+                K = 100 with odd T, -inf entries: forward rtol/atol 1e-5,
+                gradients rtol 1e-4 / atol 1e-5 (with the same f64 rule),
+                bitwise equality reported, launches = the plan's length;
+                the kernels' logarithm against logf on every float in
+                [FLT_MIN, 128] (no difference allowed).  The fused log-matmul kernel at (2, 1000,
                 1000) @ (2, 1000, 1000), a ragged shape and -inf rows:
                 rtol/atol 1e-5.  Times beside the plain version's and the
                 dense torch route's (``ALAN_TPU_NO_SMALLK_CHAIN=1``);
@@ -44,7 +49,8 @@ without its final line:
                 training days, ``examples/models/covid.py``), a QEM Q, K=30,
                 data from a fixed numpy seed, ``train.qem`` steps on the
                 card: both small-K chain kernels must launch in every step
-                (one launch per tree level: 7 each), finite ELBOs and state,
+                (one launch per entry of the launch plan: 3 each at T = 109,
+                K = 30), finite ELBOs and state,
                 peak memory, then a profile of two more steps;
 6. covid_cross_check -- one covid update from the same state and injected
                 particles, small-K kernels against the dense chain route:
@@ -258,32 +264,46 @@ def _chain_operands(shape, seed, inf=False):
     return torch.from_numpy(ms).cuda(), torch.from_numpy(W).cuda()
 
 
-def _chain_value_and_grad(level, ms, W):
+def _plain_chain(x):
+    """The plain version of the whole chain, one tree level at a time."""
+    from alan_tpu_torch.ops import smallk_kernel as sk
+    while x.shape[1] != 1:
+        x = sk.reference_level(x)
+    return x[:, 0]
+
+
+def _chain_value_and_grad(chain, ms, W):
     import torch
     x = ms.clone().requires_grad_(True)
-    y = x
-    while y.shape[1] != 1:
-        y = level(y)
-    (g,) = torch.autograd.grad((y[:, 0] * W).sum(), [x])
-    return y[:, 0].detach(), g
+    y = chain(x)
+    (g,) = torch.autograd.grad((y * W).sum(), [x])
+    return y.detach(), g
 
 
 def _check_chain(tag, shape, seed, inf=False):
     import torch
     from alan_tpu_torch.ops import smallk_kernel as sk
     ms, W = _chain_operands(shape, seed, inf)
-    got, ggot = _chain_value_and_grad(sk.logmmexp_level, ms, W)
-    want, gwant = _chain_value_and_grad(sk.reference_level, ms, W)
-    exact, gexact = _chain_value_and_grad(sk.reference_level, ms.double(),
-                                          W.double())
+    before = (sk.FWD_LAUNCHES, sk.BWD_LAUNCHES)
+    got, ggot = _chain_value_and_grad(sk.chain_logmmexp_smallk, ms, W)
     torch.cuda.synchronize()
+    launches = [sk.FWD_LAUNCHES - before[0], sk.BWD_LAUNCHES - before[1]]
+    want, gwant = _chain_value_and_grad(_plain_chain, ms, W)
+    exact, gexact = _chain_value_and_grad(_plain_chain, ms.double(), W.double())
+    torch.cuda.synchronize()
+    plan = sk.launch_plan(shape[1], shape[2])
     res = {"phase": "kernels", "kernel": "smallk_logmmexp", "case": tag,
-           "chains_T_K": list(shape), "ok": True}
+           "chains_T_K": list(shape), "plan": plan, "launches": launches,
+           "bitwise": [bool(torch.equal(got, want)), bool(torch.equal(ggot, gwant))],
+           "ok": True}
     _check(res, "kernels", tag, "out", got, want, exact, 1e-5, 1e-5)
     _check(res, "kernels", tag, "dms", ggot, gwant, gexact, 1e-4, 1e-5)
     if not torch.isfinite(got).all():
         res["ok"] = False
         fail("kernels", f"{tag}: non-finite chain")
+    if launches != [len(plan)] * 2:
+        res["ok"] = False
+        fail("kernels", f"{tag}: {launches} launches, the plan {plan} has {len(plan)}")
     emit(res)
     return res, ms
 
@@ -302,40 +322,56 @@ def phase_chain_kernels():
     chains, and their times over covid's chain."""
     import torch
     from alan_tpu_torch.ops import logmmexp as lm
+    from alan_tpu_torch.ops import native
     from alan_tpu_torch.ops import smallk_kernel as sk
+    lib = native.load("smallk_logmmexp", sk._SIGNATURES)
+    sizes = {f"K{K}_m{m}_{d}_{direct}": [lib.smallk_smem_bytes(K, m, int(d == "bwd"), direct),
+                                     sk.segment_smem(K, m, d == "bwd", direct)]
+             for K in (1, 2, 30, 45, 100, 128) for m in (1, 2, 3)
+             for d in ("fwd", "bwd") for direct in (0, 1)}
+    if any(a != b for a, b in sizes.values()):
+        fail("kernels", f"shared memory: the kernel and the planner disagree {sizes}")
+    log_bad = sk.log_mismatches()
+    if log_bad:
+        fail("kernels", f"the kernels' logarithm differs from logf at {log_bad} floats")
     _check_chain("K2", (130, 8, 2), seed=21)
     _check_chain("K100_odd_T", (16, 5, 100), seed=22)
     _check_chain("inf", (40, 7, 30), seed=23, inf=True)
+    for T in (3, 7, 8, 9, 17):                  # around covid's segment of 8
+        _check_chain(f"K30_T{T}", (40, T, 30), seed=24 + T)
+    _check_chain("K45_T9", (24, 9, 45), seed=25)   # segments of 4
     main, ms = _check_chain("covid_chain", COVID_CHAIN, seed=20)
 
+    B, T, K = COVID_CHAIN
+    plan = sk.launch_plan(T, K)
     xs, x = [], ms
-    with torch.no_grad():
-        while x.shape[1] != 1:
-            xs.append(x)
-            x = sk._launch_fwd(x)
-    gs = [torch.randn((x.shape[0], (x.shape[1] + 1) // 2) + x.shape[2:],
-                      device=x.device) for x in xs]
+    for m in plan:
+        xs.append(x)
+        x = sk._launch_fwd(x, m)
+    gs = [torch.randn((B, (x.shape[1] + (1 << m) - 1) >> m, K, K), device=x.device)
+          for x, m in zip(xs, plan)]
 
     def fwd():
         x = ms
-        while x.shape[1] != 1:
-            x = sk._launch_fwd(x)
+        for m in plan:
+            x = sk._launch_fwd(x, m)
 
     def bwd():
-        for x, g in zip(xs, gs):
-            sk._launch_bwd(x, g)
+        for x, g, m in zip(xs, gs, plan):
+            sk._launch_bwd(x, g, m)
 
     def plain_fwd():
         with torch.no_grad():
-            x = ms
-            while x.shape[1] != 1:
-                x = sk.reference_level(x)
+            _plain_chain(ms)
 
     def dense_fwd():
         with torch.no_grad():
             lm.chain_logmmexp(ms)
 
+    smi = []
     fwd_ms, bwd_ms = cuda_ms(fwd), cuda_ms(bwd)
+    smi.append(nvidia_smi_clocks())
+    fwd_ms, bwd_ms = cuda_ms(fwd), cuda_ms(bwd)    # timed again, beside the sample
     plain_fwd_ms = cuda_ms(plain_fwd, reps=5, inner=1)
     os.environ["ALAN_TPU_NO_SMALLK_CHAIN"] = "1"
     try:
@@ -343,25 +379,25 @@ def phase_chain_kernels():
     finally:
         del os.environ["ALAN_TPU_NO_SMALLK_CHAIN"]
     xg = ms.clone().requires_grad_(True)
-    y = xg
-    while y.shape[1] != 1:
-        y = sk.reference_level(y)
-    loss = y.sum()
+    loss = _plain_chain(xg).sum()
     plain_bwd_ms = cuda_ms(lambda: torch.autograd.grad(loss, xg, retain_graph=True),
                            reps=5, inner=1)
-    del loss, y, xg
+    del loss, xg
 
-    B, T, K = COVID_CHAIN
     pairs = sum(_levels(T))                 # 108 pair products per chain
-    slab = 4 * B * K * K                    # one operator of every chain, bytes
-    fwd_bound, fwd_by = bound(3 * pairs * slab, 2.0 * pairs * B * K ** 3)
-    bwd_bound, bwd_by = bound(5 * pairs * slab, 6.0 * pairs * B * K ** 3)
+    op = 4 * B * K * K                      # one operator of every chain, bytes
+    # the whole chain as one call: each input read once, each output written once
+    fwd_bound, fwd_by = bound(T * op + op, 2.0 * pairs * B * K ** 3)
+    bwd_bound, bwd_by = bound(T * op + op + T * op, 6.0 * pairs * B * K ** 3)
     emit({"phase": "kernels", "kernel": "smallk_logmmexp", "case": "timing",
-          "chains_T_K": list(COVID_CHAIN), "levels": len(_levels(T)),
+          "chains_T_K": list(COVID_CHAIN), "plan": plan, "levels": len(_levels(T)),
           "pair_products": pairs, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
           "plain_fwd_ms": plain_fwd_ms, "plain_bwd_ms": plain_bwd_ms,
           "dense_route_fwd_ms": dense_fwd_ms,
-          "fwd_bound_ms": fwd_bound, "bwd_bound_ms": bwd_bound})
+          "fwd_bound_ms": fwd_bound, "bwd_bound_ms": bwd_bound,
+          "fwd_bound_share": fwd_bound / fwd_ms, "bwd_bound_share": bwd_bound / bwd_ms,
+          "log_mismatches_in_FLT_MIN_to_128": log_bad,
+          "clocks_power": smi})
     return {
         "fwd": dict(max_abs_err=main["out"]["max_abs_err"], ms=fwd_ms,
                     plain_ms=plain_fwd_ms, bound_ms=fwd_bound, bound_by=fwd_by,
@@ -638,6 +674,15 @@ def phase_cross_check(phase, problem, step, state, K, env):
     if not res["ok"]:
         fail(phase, f"ELBO rel diff {rel}, state diffs {diffs}")
     emit(res)
+
+
+def nvidia_smi_clocks():
+    """The card's SM clock, power draw and power limit, sampled now."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", os.environ["CUDA_VISIBLE_DEVICES"],
+         "--query-gpu=clocks.sm,power.draw,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
 
 
 def nvidia_smi_line():

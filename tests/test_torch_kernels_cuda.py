@@ -13,11 +13,15 @@ and no JAX it runs without the suite's conftest:
 * one grouped-MovieLens QEM step on the card (lazy path forced, so z's
   factor runs through the kernels) against the same step on the CPU (the
   plain version), from the same particles;
-* the small-K chain kernels (one tree level forward and backward, and whole
-  chains) against ``reference_level`` on the same CUDA tensors, at covid's
-  chain (2760 chains, T = 109, K = 30), K = 2, K = 100, odd T and -inf
-  entries: rtol/atol 1e-5 forward, rtol 1e-4 / atol 1e-5 gradients; and
-  their refusal of K out of range;
+* the small-K chain kernels (several tree levels a launch, forward and
+  backward, over whole chains) against the level-by-level plain version
+  (``reference_level``) on the same CUDA tensors, at covid's chain (2760
+  chains, T = 109, K = 30), T at and around covid's segment of 8, K = 45
+  (segments of 4), K = 2, K = 100, odd T and -inf entries: rtol/atol 1e-5
+  forward, rtol 1e-4 / atol 1e-5 gradients, one launch each way per entry
+  of the launch plan; one launch against ``reference_segment``; the
+  kernels' shared memory against the planner's; their logarithm against
+  ``logf``; and their refusal of K out of range;
 * the fused log-matmul kernel against ``reference_logmmexp``: (2, 1000,
   1000), a ragged shape and -inf rows, rtol/atol 1e-5.
 """
@@ -153,6 +157,11 @@ SMALLK_CASES = [
     ((16, 5, 100), False),      # K = 100, odd T
     ((40, 7, 30), True),        # -inf entries
     ((3, 4, 128), False),       # the largest K the kernels take
+    ((40, 3, 30), False),       # T below covid's segment of 8
+    ((40, 8, 30), False),       # T at it
+    ((40, 9, 30), False),       # one past it
+    ((40, 17, 30), False),      # two segments and one
+    ((24, 9, 45), False),       # segments of 4
 ]
 
 
@@ -167,38 +176,72 @@ def _chain_operands(shape, inf, seed, device):
     return torch.tensor(ms, device=device), torch.tensor(W, device=device)
 
 
-def _chain_value_and_grad(level, ms, W):
-    """The chain's value and d(sum(chain * W))/d ms, with ``level`` as the
-    tree level."""
+def _plain_chain(x):
+    while x.shape[1] != 1:
+        x = tsk.reference_level(x)
+    return x[:, 0]
+
+
+def _chain_value_and_grad(chain, ms, W):
+    """The chain's value and d(sum(chain * W))/d ms."""
     x = ms.clone().requires_grad_(True)
-    y = x
-    while y.shape[1] != 1:
-        y = level(y)
-    (g,) = torch.autograd.grad((y[:, 0] * W).sum(), [x])
-    return y[:, 0].detach(), g
+    y = chain(x)
+    (g,) = torch.autograd.grad((y * W).sum(), [x])
+    return y.detach(), g
 
 
 @pytest.mark.parametrize("shape,inf", SMALLK_CASES)
 def test_smallk_chain_matches_plain_version(card, shape, inf):
     ms, W = _chain_operands(shape, inf, 11, card)
     launches = (tsk.FWD_LAUNCHES, tsk.BWD_LAUNCHES)
-    got, ggot = _chain_value_and_grad(tsk.logmmexp_level, ms, W)
+    got, ggot = _chain_value_and_grad(tsk.chain_logmmexp_smallk, ms, W)
     torch.cuda.synchronize()
-    levels = (tsk.FWD_LAUNCHES - launches[0], tsk.BWD_LAUNCHES - launches[1])
-    assert levels[0] == levels[1] == int(np.ceil(np.log2(shape[1])))
-    want, gwant = _chain_value_and_grad(tsk.reference_level, ms, W)
+    counts = (tsk.FWD_LAUNCHES - launches[0], tsk.BWD_LAUNCHES - launches[1])
+    assert counts[0] == counts[1] == len(tsk.launch_plan(shape[1], shape[2]))
+    want, gwant = _chain_value_and_grad(_plain_chain, ms, W)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(ggot, gwant, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,K,m", [(109, 30, 3), (14, 30, 3), (2, 30, 1), (11, 5, 2)])
+def test_smallk_launch_matches_reference_segment(card, n, K, m):
+    ms, _ = _chain_operands((7, n, K), False, 12, card)
+    x = ms.clone().requires_grad_(True)
+    out = tsk.logmmexp_segment(x, m)
+    g = torch.randn_like(out)
+    (dx,) = torch.autograd.grad(out, [x], g)
+    xr = ms.clone().requires_grad_(True)
+    want = tsk.reference_segment(xr, m)
+    (dxr,) = torch.autograd.grad(want, [xr], g)
+    torch.testing.assert_close(out.detach(), want.detach(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dx, dxr, rtol=1e-4, atol=1e-5)
+
+
+def test_smallk_shared_memory_matches_the_planner(card):
+    from alan_tpu_torch.ops.native import load
+    lib = load("smallk_logmmexp", tsk._SIGNATURES)
+    for K in (1, 2, 30, 45, 100, 128):
+        for m in (1, 2, 3, 4, 5):
+            for bwd in (False, True):
+                for direct in (0, 1):
+                    assert (lib.smallk_smem_bytes(K, m, int(bwd), direct)
+                            == tsk.segment_smem(K, m, bwd, direct))
+
+
+def test_smallk_logarithm_is_logf(card):
+    """The epilogue's branch-free logarithm equals logf on every float that
+    c + tiny can be (K <= 128)."""
+    assert tsk.log_mismatches() == 0
 
 
 def test_smallk_kernels_refuse_k_out_of_range(card):
     for K in (0, tsk.MAX_K + 1):
         x = torch.zeros((2, 4, K, K), device=card)
         with pytest.raises(ValueError, match="K="):
-            tsk.logmmexp_level(x)
+            tsk.logmmexp_segment(x, 1)
     with pytest.raises(ValueError, match="float32"):
-        tsk.logmmexp_level(torch.zeros((2, 4, 5, 5), device=card, dtype=torch.float64))
+        tsk.logmmexp_segment(torch.zeros((2, 4, 5, 5), device=card, dtype=torch.float64), 1)
 
 
 # ---- the fused log-matmul kernel ----------------------------------------------

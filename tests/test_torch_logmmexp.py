@@ -179,15 +179,77 @@ def test_kernel_launchers_refuse_cpu_tensors():
     a kernel (the wrappers give it the plain version instead)."""
     x = torch.zeros((2, 4, 5, 5))
     with pytest.raises(ValueError, match="CUDA"):
-        tsk._launch_fwd(x)
+        tsk._launch_fwd(x, 1)
     with pytest.raises(ValueError, match="CUDA"):
-        tsk._launch_bwd(x, torch.zeros((2, 2, 5, 5)))
+        tsk._launch_bwd(x, torch.zeros((2, 2, 5, 5)), 1)
     with pytest.raises(ValueError, match="CUDA"):
         tlk._launch(torch.zeros((1, 3, 4)), torch.zeros((1, 4, 2)))
     counts = (tsk.FWD_LAUNCHES, tsk.BWD_LAUNCHES, tlk.LAUNCHES)
-    tsk.logmmexp_level(x)
+    tsk.logmmexp_segment(x, 2)
     tlk.logmmexp_fused(torch.zeros((1, 3, 4)), torch.zeros((1, 4, 2)))
     assert (tsk.FWD_LAUNCHES, tsk.BWD_LAUNCHES, tlk.LAUNCHES) == counts
+
+
+# ---- the small-K launch plan ------------------------------------------------------
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4])
+@pytest.mark.parametrize("T", [2, 3, 7, 8, 9, 15, 16, 17, 109])
+def test_reference_segment_is_m_levels(T, m):
+    """One launch's plain version (aligned segments of 2^m operators, each
+    reduced on its own) is bitwise the m levels of the whole-chain tree,
+    short last segment included; its gradient agrees at rtol 1e-6."""
+    rng = np.random.default_rng(100 * T + m)
+    for K in (2, 5):
+        ms = (rng.standard_normal((3, T, K, K)) * 2 - 1).astype(np.float32)
+        W = rng.standard_normal((3, -(-T // 2 ** m), K, K)).astype(np.float32)
+        x, xs = _t(ms, True), _t(ms, True)
+        got = tsk.reference_segment(x, m)
+        want = xs
+        for _ in range(m):
+            if want.shape[1] > 1:
+                want = tsk.reference_level(want)
+        assert got.shape == want.shape == W.shape
+        assert torch.equal(got, want)
+        (g_got,) = torch.autograd.grad((got * _t(W)).sum(), [x])
+        (g_want,) = torch.autograd.grad((want * _t(W)).sum(), [xs])
+        np.testing.assert_allclose(g_got.numpy(), g_want.numpy(), rtol=1e-6, atol=0)
+
+
+def test_launch_plan():
+    """Covid's chain (T = 109, K = 30) takes three launches of the kernels,
+    109 -> 14 -> 2 -> 1, at the largest m whose backward fits two blocks on
+    an SM; K = 100 and K = 128 fit one level a launch; K = 129 raises."""
+    assert tsk.launch_plan(109, 30) == [3, 3, 1]
+    sizes, n = [109], 109
+    for m in tsk.launch_plan(109, 30):
+        n = tsk.reference_segment(torch.zeros((1, n, 1, 1)), m).shape[1]
+        sizes.append(n)
+    assert sizes == [109, 14, 2, 1]
+    two = 2 * (tsk.segment_smem(30, 3, True, 0) + tsk.SMEM_RESERVED)
+    assert tsk.layout_for(30, 3, True) == tsk.layout_for(30, 3, False) == 0
+    assert two <= tsk.SMEM_PER_SM < 2 * (tsk.segment_smem(30, 4, True, 0) + tsk.SMEM_RESERVED)
+    assert tsk.launch_plan(9, 45) == [2, 2]              # m differs from covid's
+    for K in (100, 128):
+        assert tsk.launch_plan(7, K) == [1, 1, 1]
+        layout = tsk.layout_for(K, 1, True)
+        assert tsk.segment_smem(K, 1, True, layout) <= tsk.SMEM_PER_BLOCK
+    assert tsk.layout_for(128, 1, True) == 1             # no room to stage
+    assert tsk.launch_plan(8, 2) == [3] and tsk.launch_plan(1, 30) == []
+    with pytest.raises(ValueError, match="K=129"):
+        tsk.launch_plan(4, 129)
+
+
+def test_smallk_chain_runs_the_launch_plan(monkeypatch):
+    """On the CPU the small-K route runs the plan, one plain launch each."""
+    calls = []
+    orig = tsk.logmmexp_segment
+    monkeypatch.setattr(tsk, "logmmexp_segment",
+                        lambda x, m: calls.append((tuple(x.shape), m)) or orig(x, m))
+    ms = _chain_input((6, 109, 30), 7)
+    got = tlm.chain_logmmexp(_t(ms)).numpy()
+    assert calls == [((6, 109, 30, 30), 3), ((6, 14, 30, 30), 3), ((6, 2, 30, 30), 1)]
+    np.testing.assert_allclose(got, np.asarray(j_chain(jnp.asarray(ms))),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_level_layout_and_remainder():

@@ -227,21 +227,23 @@ def test_covid_qem_step_matches_jax(covid_setup):
     tree = convert.tree_from_numpy(to_numpy_tree(jtree), "cpu")
     fwd = tsk.FWD_LAUNCHES
     calls = []
-    orig = tsk.logmmexp_level
+    orig = tsk.logmmexp_segment
     with Env(**PORT_LOWRANK):
         step, state = train.qem(tprob, COVID_K, lr=COVID_LR, device="cpu")
         ts = Sample(tprob, tree, tprob.Q.plate.groupvarname2Kdim(COVID_K),
                     PermutationSampler, False, states=state)
         t_elbo, t_moms = ts._moments_and_elbo(list(tprob.Q.qem_flat_list_rmkeys))
         try:
-            tsk.logmmexp_level = lambda x: calls.append(tuple(x.shape)) or orig(x)
+            tsk.logmmexp_segment = (lambda x, m: calls.append((tuple(x.shape), m))
+                                    or orig(x, m))
             (_, t_newQ), t_elbo2 = step(state, sample=tree)
         finally:
-            tsk.logmmexp_level = orig
-    # the chain ran through the small-K route, one level per tree level of
-    # T = 16 (16 -> 8 -> 4 -> 2 -> 1), over nRs * K chains; on the CPU no
-    # kernel launches
-    assert calls == [(4 * COVID_K, n, COVID_K, COVID_K) for n in (16, 8, 4, 2)]
+            tsk.logmmexp_segment = orig
+    # the chain ran through the small-K route, one launch per entry of the
+    # launch plan: at T = 16 and K = 5 one launch of all four levels, over
+    # nRs * K chains; on the CPU no kernel launches
+    assert tsk.launch_plan(16, COVID_K) == [4]
+    assert calls == [((4 * COVID_K, 16, COVID_K, COVID_K), 4)]
     assert tsk.FWD_LAUNCHES == fwd
     assert float(t_elbo) == float(t_elbo2)
     assert abs(float(t_elbo) - float(j_elbo)) <= 1e-5 * abs(float(j_elbo)), \
