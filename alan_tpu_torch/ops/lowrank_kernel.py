@@ -12,27 +12,37 @@ On CUDA tensors :func:`lowrank_logsumexp` runs hand-written kernels for
 Hopper (``alan_tpu_torch/csrc/lowrank_lse.cu``):
 
 * the forward kernel replaces ``_fwd_kernel`` (``pallas_lowrank.py:215``);
-* the backward kernel replaces ``_bwd_kernel`` (``pallas_lowrank.py:298``).
-  It recomputes ``gw = g * exp(U.V + D - out)`` and returns ``dD = sum_j gw``,
+* the backward replaces ``_bwd_kernel`` (``pallas_lowrank.py:298``).  It
+  recomputes ``gw = g * exp(U.V + D - out)`` and returns ``dD = sum_j gw``,
   ``dU = sum_j gw V`` and ``dV = sum_{p,i} gw U``, each only when autograd
   asks for it.  On the QEM path only D carries a gradient (the posterior
   source terms ride in D), so only dD is computed there.
 
 What bounds them on the card: at the main-path shape (S=1, P=300, I=J=1000,
-F=36) the forward is 2*P*I*J*F = 2.2e10 f32 FLOP plus 3e8 expf, the backward
-up to three times that multiply-add work, against ~45 MB of operands, so
-both are bound by f32 arithmetic, not by memory.  The kernels use plain f32
-FMAs on the CUDA cores (f32-grade scores are required, see
-``reference_lowrank_logsumexp``), keep one operand row per thread in
-registers and broadcast the other from shared memory; the source note in
-``lowrank_lse.cu`` has the details.  They take any S, P and F (a feature
-axis wider than 40 is taken in chunks); the wrapper raises only on sizes
-that do not fit the C interface's 32-bit ints.
+F=36) the forward is 2*P*I*J*F = 2.2e10 FLOP of score products plus 3e8
+exponentials against ~46 MB of operands, and the dD backward the same.  The
+scores must keep f32 grade (see ``reference_lowrank_logsumexp``), so every
+kernel computes them on the tensor cores as three TF32 products per
+multiply-add (3xTF32: hi/lo splits of both operands, the lo.lo product
+dropped, ~2^-22 of each term), whose bound is 0.131 ms against 0.322 ms for
+plain f32 FMAs.  The layout is FlashAttention-2's, with the logsumexp (or
+the backward's weights) as the epilogue of each score tile, and the hi/lo
+split is one pass before, into a scratch the wrapper allocates; the source
+note in ``lowrank_lse.cu`` has the details.  The backward's scores are
+bitwise the forward's, and its weights are normalised to the forward's
+logsumexp before the f32 rounding of ``out`` (the forward also returns that
+rounding): dD sums the weights of each score tile, and dU and dV, which QEM
+never asks for, multiply the same weights by the streamed rows
+(FlashAttention-2's P.V) on the CUDA cores.  The kernels take any S, P
+and F (a feature axis too wide for shared memory is taken in chunks); the
+wrapper raises only on sizes that do not fit the C interface's 32-bit ints.
 
 On CPU tensors the plain version, :func:`reference_lowrank_logsumexp`, runs
 instead, under ordinary autograd.  A CUDA tensor gets the kernel or an error.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -45,20 +55,24 @@ BWD_LAUNCHES = 0
 
 #: largest size the C interface's int arguments carry
 _INT_MAX = 2 ** 31 - 1
-#: dV partial-sum blocks aimed at: about four per SM of an H100 (132 SMs)
-_DV_TARGET_BLOCKS = 4 * 132
-#: longest (p, i) range one dV block sums
-_DV_MAX_ROWS = 1024
 
 _SIGNATURES = {
-    "lowrank_lse_fwd": [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
-    "lowrank_lse_bwd": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT,
-                        INT, INT, INT, INT, INT, PTR],
+    "lowrank_lse_split_floats": [INT, INT, INT, INT, INT],
+    "lowrank_lse_fwd": [PTR] * 6 + [INT] * 5 + [PTR],
+    "lowrank_lse_bwd": [PTR] * 11 + [INT] * 5 + [PTR],
 }
 
 
 def _lib():
-    return load("lowrank_lse", _SIGNATURES)
+    lib = load("lowrank_lse", _SIGNATURES)
+    lib.lowrank_lse_split_floats.restype = ctypes.c_longlong
+    return lib
+
+
+def _split_scratch(lib, S, P, I, J, F, device):
+    """Scratch for the kernels' hi/lo split of U and V."""
+    n = lib.lowrank_lse_split_floats(S, P, I, J, F)
+    return torch.empty((n,), device=device, dtype=torch.float32)
 
 
 def _check_operands(U, V, D):
@@ -89,33 +103,27 @@ def _check_operands(U, V, D):
 
 
 def _launch_fwd(U, V, D):
+    """-> (out, rnd): rnd is the rounding of out's last f32 sum, with which
+    the backward normalises its weights to the unrounded logsumexp."""
     global FWD_LAUNCHES
     S, P, I, J, F = _check_operands(U, V, D)
     lib = _lib()
     out = torch.empty((S, P, J), device=U.device, dtype=torch.float32)
+    rnd = torch.empty_like(out)
+    split = _split_scratch(lib, S, P, I, J, F, U.device)
     with torch.cuda.device(U.device):
-        rc = lib.lowrank_lse_fwd(ptr(U), ptr(V), ptr(D), ptr(out),
-                                 S, P, I, J, F, stream(U))
+        rc = lib.lowrank_lse_fwd(ptr(U), ptr(V), ptr(D), ptr(out), ptr(rnd),
+                                 ptr(split), S, P, I, J, F, stream(U))
     check_status(rc, "lowrank_lse_fwd")
     FWD_LAUNCHES += 1
-    return out
+    return out, rnd
 
 
-def dv_chunks(S, P, I, J) -> int:
-    """Number of (p, i) ranges the dV reduction is split over: enough blocks
-    to fill the card, ranges of at most _DV_MAX_ROWS rows (each range is one
-    sequential f32 sum) and of at least one staged chunk of 32 rows."""
-    j_tiles = -(-J // 128)
-    fill = -(-_DV_TARGET_BLOCKS // (j_tiles * S))
-    short = -(-(P * I) // _DV_MAX_ROWS)
-    return int(max(1, min(max(fill, short), -(-(P * I) // 32))))
-
-
-def _launch_bwd(U, V, D, out, g, want_dU: bool, want_dV: bool):
-    """-> (dU or None, dD, dV or None)."""
+def _launch_bwd(U, V, D, out, rnd, g, want_dU: bool, want_dV: bool):
+    """-> (dU or None, dD, dV or None); out and rnd from :func:`_launch_fwd`."""
     global BWD_LAUNCHES
     S, P, I, J, F = _check_operands(U, V, D)
-    for name, t in (("out", out), ("g", g)):
+    for name, t in (("out", out), ("rnd", rnd), ("g", g)):
         if (t.device != U.device or t.dtype != torch.float32
                 or tuple(t.shape) != (S, P, J) or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 (S, P, J) "
@@ -125,15 +133,14 @@ def _launch_bwd(U, V, D, out, g, want_dU: bool, want_dV: bool):
     dD = torch.empty((S, P, I), **kw)
     dU = torch.empty((S, P, I, F), **kw) if want_dU else None
     dV = scratch = None
-    n_chunks = 0
     if want_dV:
-        n_chunks = dv_chunks(S, P, I, J)
         dV = torch.empty((S, J, F), **kw)
-        scratch = torch.empty((n_chunks, S, J, F), **kw)
+        scratch = torch.empty((P, S, J, F), **kw)    # dV's sum over each p
+    split = _split_scratch(lib, S, P, I, J, F, U.device)
     with torch.cuda.device(U.device):
-        rc = lib.lowrank_lse_bwd(ptr(U), ptr(V), ptr(D), ptr(out), ptr(g),
-                                 ptr(dU), ptr(dD), ptr(dV), ptr(scratch),
-                                 n_chunks, S, P, I, J, F, stream(U))
+        rc = lib.lowrank_lse_bwd(ptr(U), ptr(V), ptr(D), ptr(out), ptr(rnd),
+                                 ptr(g), ptr(dU), ptr(dD), ptr(dV), ptr(scratch),
+                                 ptr(split), S, P, I, J, F, stream(U))
     check_status(rc, "lowrank_lse_bwd")
     BWD_LAUNCHES += 1
     return dU, dD, dV
@@ -142,15 +149,15 @@ def _launch_bwd(U, V, D, out, g, want_dU: bool, want_dV: bool):
 class _LowRankLSE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, U, V, D):
-        out = _launch_fwd(U, V, D)
-        ctx.save_for_backward(U, V, D, out)
+        out, rnd = _launch_fwd(U, V, D)
+        ctx.save_for_backward(U, V, D, out, rnd)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        U, V, D, out = ctx.saved_tensors
+        U, V, D, out, rnd = ctx.saved_tensors
         need_U, need_V, _ = ctx.needs_input_grad
-        dU, dD, dV = _launch_bwd(U, V, D, out, g.contiguous(), need_U, need_V)
+        dU, dD, dV = _launch_bwd(U, V, D, out, rnd, g.contiguous(), need_U, need_V)
         return dU, dV, dD
 
 

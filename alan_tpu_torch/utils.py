@@ -15,8 +15,13 @@ Number = (int, float)
 def resolve_device(device) -> torch.device:
     """The port's device rule: ``"cuda"`` (the default of every entry point)
     needs a card and raises without one; only an explicit ``"cpu"`` runs on
-    the host.  On CUDA the f32 matmul precision is pinned to full f32 (no
-    TF32): the factored log-densities reach ~1e6 in magnitude and cancel."""
+    the host.  On CUDA the f32 matmul precision is pinned to full f32: TF32
+    stays off for ``torch.matmul`` and convolutions, because one TF32
+    product keeps ~3 digits and the factored log-densities reach ~1e4-1e6
+    and cancel.  The lazy low-rank kernels (``ops/lowrank_kernel.py``) do
+    use the TF32 tensor cores, but as a 3xTF32 split (hi/lo parts of both
+    operands, three products per multiply-add, ~2^-22 of each term), which
+    keeps f32 grade."""
     device = torch.device(device)
     if device.type == "cuda":
         if not torch.cuda.is_available():

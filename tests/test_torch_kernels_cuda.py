@@ -9,7 +9,11 @@ and no JAX it runs without the suite's conftest:
 * ``lowrank_logsumexp`` forward and all three gradients against
   ``reference_lowrank_logsumexp`` on the same CUDA tensors: rtol/atol 1e-5
   forward, rtol 1e-4 / atol 1e-5 gradients (the tolerances of
-  ``tests/test_lowrank_lazy.py``);
+  ``tests/test_lowrank_lazy.py``), on random operands, -inf biases, ragged
+  edges of the tensor-core tiles, feature axes taken in chunks and (by the
+  f64 rule) the Normal's factors with heavy cancellation; one forward and
+  one backward launch per call, whichever gradients are asked for; a lazy
+  factor with a wide feature axis reaches the kernels;
 * one grouped-MovieLens QEM step on the card (lazy path forced, so z's
   factor runs through the kernels) against the same step on the CPU (the
   plain version), from the same particles;
@@ -37,6 +41,7 @@ from alan_tpu_torch.ops import logmmexp_kernel as tlk
 from alan_tpu_torch.ops import lowrank_kernel as tk
 from alan_tpu_torch.ops import smallk_kernel as tsk
 from alan_tpu_torch.sampler import PermutationSampler
+from lowrank_operands import normal_factor_operands
 
 pytestmark = pytest.mark.cuda
 
@@ -46,9 +51,13 @@ CASES = [
     ((1, 3, 50, 7, 36), False),      # tiny j, the main path's F
     ((1, 1, 257, 1, 2), False),      # degenerate plate/parent
     ((1, 4, 64, 5, 3), True),        # -inf bias rows
-    ((2, 5, 130, 40, 41), False),    # F just past 40: two feature chunks
-    ((1, 3, 70, 9, 80), False),      # F = 80: three feature chunks
+    ((2, 5, 130, 40, 41), False),    # F just past 40: two dU / dV blocks
+    ((1, 3, 70, 9, 80), False),      # F = 80: two dU / dV blocks
     ((1, 70000, 3, 5, 2), False),    # P above a launch's grid.y limit
+    ((1, 5, 1037, 203, 36), False),  # the main path's F, I and J off the 64 / 128 tiles
+    ((1, 6, 300, 90, 36), "cancellation"),   # Normal factors, terms 1e2-1e4 x the score
+    ((1, 2, 40, 30, 104), False),    # one chunk forward and dD, two with dU / dV
+    ((1, 3, 130, 70, 150), False),   # F in shared-memory chunks in every mode
 ]
 
 
@@ -60,6 +69,8 @@ def card():
 
 
 def _operands(shape, seed, inf_bias):
+    if inf_bias == "cancellation":
+        return normal_factor_operands(shape, seed, 1.0, 0.3, 3e-4)
     S, P, I, J, F = shape
     rng = np.random.default_rng(seed)
     U = (rng.standard_normal((S, P, I, F)) * 0.5).astype(np.float32)
@@ -88,9 +99,22 @@ def test_kernel_matches_plain_version(card, shape, inf_bias):
     assert (tk.FWD_LAUNCHES, tk.BWD_LAUNCHES) == (launches[0] + 1, launches[1] + 1)
     want, gwant = _value_and_grads(tk.reference_lowrank_logsumexp, arrays, card)
     assert torch.isfinite(got).all()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    for a, b in zip(ggot, gwant):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    if inf_bias != "cancellation":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        for a, b in zip(ggot, gwant):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+        return
+    # heavy cancellation: the plain f32 version is no exact reference, so a
+    # result off the bound passes if it is as close as the plain version to
+    # an f64 evaluation (the rule of chip_smoke.py)
+    exact, gexact = _value_and_grads(tk.reference_lowrank_logsumexp,
+                                     [a.astype(np.float64) for a in arrays], card)
+    for a, b, c, rtol in zip((got, *ggot), (want, *gwant), (exact, *gexact),
+                             (1e-5, 1e-4, 1e-4, 1e-4)):
+        err64 = (a.double() - c).abs().max()
+        plain64 = (b.double() - c).abs().max()
+        assert torch.allclose(a, b, rtol=rtol, atol=1e-5) or err64 <= plain64, \
+            (err64.item(), plain64.item())
 
 
 def test_kernel_computes_only_the_gradients_asked_for(card):
@@ -101,6 +125,40 @@ def test_kernel_computes_only_the_gradients_asked_for(card):
     Dr = D.clone().requires_grad_(True)
     (want,) = torch.autograd.grad(tk.reference_lowrank_logsumexp(U, V, Dr), [Dr], G)
     torch.testing.assert_close(dD, want, rtol=1e-4, atol=1e-5)
+
+
+def test_one_launch_each_way_per_call(card):
+    U, V, D, G = (torch.tensor(a, device=card)
+                  for a in _operands((1, 4, 300, 70, 36), 2, False))
+    for wanted in ([D], [U, D], [V, D], [U, V, D]):
+        ts = {id(t): t.clone().requires_grad_(any(t is w for w in wanted))
+              for t in (U, V, D)}
+        Ut, Vt, Dt = (ts[id(t)] for t in (U, V, D))
+        before = (tk.FWD_LAUNCHES, tk.BWD_LAUNCHES)
+        out = tk.lowrank_logsumexp(Ut, Vt, Dt)
+        assert (tk.FWD_LAUNCHES, tk.BWD_LAUNCHES) == (before[0] + 1, before[1])
+        torch.autograd.grad(out, [ts[id(w)] for w in wanted], G)
+        torch.cuda.synchronize()
+        assert (tk.FWD_LAUNCHES, tk.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+
+
+def test_wide_lazy_factor_reaches_the_kernels(card):
+    """A Normal factor of 75 dims (F = 150, chunked in shared memory) is
+    contracted by the kernels, as its dense form is."""
+    rng = np.random.default_rng(4)
+    x = DT(torch.tensor(rng.standard_normal((40, 3, 75)), dtype=torch.float32,
+                        device=card), ("K_z", "p"))
+    params = {"loc": DT(torch.tensor(rng.standard_normal((9, 75)), dtype=torch.float32,
+                                     device=card), ("K_g",)),
+              "scale": DT(torch.tensor(rng.uniform(0.5, 2.0, (9, 75)), dtype=torch.float32,
+                                       device=card), ("K_g",))}
+    lazy = tlr.lowrank_logprob_lazy("Normal", x, params)
+    launches = tk.FWD_LAUNCHES
+    got = lazy.contract(("K_z",), [])
+    assert got is not None and tk.FWD_LAUNCHES == launches + 1
+    want = torch.logsumexp(lazy.materialize().with_dims_front(["K_z", "p", "K_g"]).data, 0)
+    torch.testing.assert_close(got.with_dims_front(["p", "K_g"]).data, want,
+                               rtol=1e-5, atol=1e-4)
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(card):

@@ -7,6 +7,12 @@
   case: rtol/atol 1e-5 forward, rtol 1e-4 / atol 1e-5 gradients.
 * ``LowRankDT`` materialize / contract, on the x side and the parameter
   side, against ``alan_tpu``'s ``LowRankDT``.
+* The precision of the CUDA kernels' arithmetic, emulated in torch by
+  ``scripts/torch_lowrank_precision.py`` (3xTF32 scores, the backward's
+  weights normalised by the rounding of ``out``) on the Normal's factors
+  with heavy cancellation and on MovieLens-like ones: out and all three
+  gradients as close to an f64 evaluation as the card check asks, where
+  the plain f32 version is, or closer than the plain version.
 * The wrapper's checks: what the CUDA kernels do not take (another dtype or
   device, a non-contiguous operand, a size beyond their 32-bit ints) raises
   before any launch.  The kernels themselves are tested on the card in
@@ -24,6 +30,7 @@ from alan_tpu.ops import lowrank as jlr
 from alan_tpu.ops import pallas_lowrank as jpl
 from alan_tpu_torch.ops import lowrank as tlr
 from alan_tpu_torch.ops import lowrank_kernel as tk
+from lowrank_operands import normal_factor_operands
 from test_torch_harness import Env, JAX_LAZY, PORT_LAZY, assert_dt_close, jax_dt
 
 SHAPES = [
@@ -190,6 +197,58 @@ def test_lazy_threshold_matches_jax():
         assert tlr.lowrank_lazy_preferred(tx, tp)
 
 
+def _script(name):
+    """A module of ``scripts/``, loaded from its file."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(root, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("case,offset,scale,spread", [
+    ("cancellation", 1.0, 0.3, 3e-4),   # terms 1e2-1e4 times the score
+    ("movielens", 0.0, 1.0, 1.0),
+])
+def test_3xtf32_scores_hold_f32_grade(case, offset, scale, spread):
+    pr = _script("torch_lowrank_precision")
+    U, V, D, G = (torch.as_tensor(a) for a in normal_factor_operands(
+        (1, 4, 200, 50, 36), 17, offset, scale, spread))
+    A64 = torch.einsum("spif,sjf->spij", U.double(), V.double()) + D.double()[..., None]
+    out64, _ = pr.lse_parts(A64)
+    exact = (out64,) + pr.grads(G.double()[:, :, None, :]
+                                * torch.exp(A64 - out64[:, :, None]), U, V)
+    ts = [t.clone().requires_grad_(True) for t in (U, V, D)]
+    plain_out = tk.reference_lowrank_logsumexp(*ts)
+    plain = (plain_out.detach(),) + torch.autograd.grad(plain_out, ts, G)
+    A3 = pr.scores_3xtf32(U, V) + D[..., None]
+    out3, rnd = pr.lse_parts(A3)
+    x = A3 - out3[:, :, None]
+    emulated = (out3,) + pr.grads(G[:, :, None, :] * torch.exp(x - rnd[:, :, None]), U, V)
+    if case == "cancellation":
+        Ua = U[0, ::2]    # the cancelling plates
+        terms = (Ua[:, :, None, :] * V[0]).abs().amax(-1).double()
+        ratio = terms / torch.einsum("pif,jf->pij", Ua.double(), V[0].double()).abs()
+        assert 1e2 <= ratio.median() <= 1e4
+        # without the rounding of out, dV lies ~10x farther from f64 than
+        # the plain version's (the weights of each (p, j) no longer sum to g)
+        unnormed = pr.grads(G[:, :, None, :] * torch.exp(x), U, V)[1]
+        assert ((unnormed.double() - exact[2]).abs().max()
+                > 5 * (plain[2].double() - exact[2]).abs().max())
+    # the card check's rule: forward 1e-5, gradients rtol 1e-4 / atol 1e-5,
+    # or no farther from f64 than the plain version
+    for got, want, exact_, rtol in zip(emulated, plain, exact, (1e-5, 1e-4, 1e-4, 1e-4)):
+        err64 = (got.double() - exact_).abs().max()
+        plain64 = (want.double() - exact_).abs().max()
+        assert torch.allclose(got.double(), exact_, rtol=rtol, atol=1e-5) or err64 <= plain64
+    # TF32 alone (one product) is far from f32 grade on the same operands
+    one, _ = pr.lse_parts(torch.einsum("spif,sjf->spij", pr.tf32(U), pr.tf32(V)) + D[..., None])
+    assert not torch.allclose(one.double(), exact[0], rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("bad", ["cpu", "dtype", "shape", "wide", "noncontig"])
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(bad):
     # meta tensors, so that each case meets its own check before the device
@@ -225,7 +284,18 @@ def test_wrapper_routes_cpu_tensors_to_plain_version():
         tk.lowrank_logsumexp(U, V, D.to("meta"))
 
 
-def test_dv_chunks():
-    assert tk.dv_chunks(1, 300, 1000, 1000) == 293    # ranges of <= 1024 rows
-    assert tk.dv_chunks(1, 1, 64, 5) == 2             # ranges of >= 32 rows
-    assert tk.dv_chunks(2, 9, 1300, 130) == 132       # enough blocks to fill
+def test_probe_marks_every_phase_of_the_kernel():
+    """``scripts/torch_lowrank_probe.py --phases`` builds a copy of the
+    kernel source with a clock64() mark at each ``// phase:`` comment; every
+    comment of the source gets its mark."""
+    import os
+    probe = _script("torch_lowrank_probe")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "alan_tpu_torch", "csrc", "lowrank_lse.cu")) as fh:
+        text = fh.read()
+    names = probe.phase_names(text)
+    assert names[:4] == ["wait", "stage", "products", "epilogue"] and names[-1] == "done"
+    marked = probe.phase_source(text)
+    assert marked.count("PHASE_MARK(") == len(names) + 1     # the marks and the macro
+    assert probe.phase_names(marked) == []
+    assert "lowrank_phase_read" in marked and "lowrank_phase_reset" in marked
