@@ -10,14 +10,16 @@ Shared libraries with plain C interfaces, loaded with ctypes:
   the fused log-matmul (``logmmexp``).
 
 Each goes into ``alan_tpu_torch/_native/`` under a name that carries a hash
-of its source and flags, so an edited source is rebuilt and never mixed up
-with an old build.  A build writes a temporary file and renames it into
+of its source, the headers beside the CUDA sources (:data:`HEADERS`) and the
+flags, so an edited source or header is rebuilt and never mixed up with an
+old build.  A build writes a temporary file and renames it into
 place, so processes that build at the same time do not see half a library.
 :func:`start_all` starts every compiler at once, for callers that want the
 builds to overlap.
 """
 from __future__ import annotations
 
+import glob
 import hashlib
 import os
 import shutil
@@ -29,6 +31,8 @@ PLANNER_SRC = os.path.join(os.path.dirname(_PKG), "csrc", "pathopt.cpp")
 #: CUDA kernels: library name -> source
 KERNELS = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
            for name in ("lowrank_lse", "smallk_logmmexp", "logmmexp")}
+#: headers beside the CUDA sources, part of every kernel library's hash
+HEADERS = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -52,9 +56,12 @@ class _Build:
     raises with the compiler's output."""
 
     def __init__(self, name: str, compiler: list[str], src: str,
-                 flags: list[str]):
-        with open(src, "rb") as fh:
-            digest = hashlib.sha256(fh.read() + " ".join(flags).encode())
+                 flags: list[str], deps: list[str] = ()):
+        digest = hashlib.sha256()
+        for path in (src, *deps):
+            with open(path, "rb") as fh:
+                digest.update(fh.read())
+        digest.update(" ".join(flags).encode())
         self.path = os.path.join(NATIVE_DIR,
                                  f"lib{name}-{digest.hexdigest()[:12]}.so")
         self.log = ""
@@ -87,7 +94,7 @@ def start_planner() -> _Build:
 
 def start_kernel(name: str) -> _Build:
     """Start (or find) the nvcc build of the CUDA source ``KERNELS[name]``."""
-    return _Build(name, [_nvcc()], KERNELS[name], NVCC_FLAGS)
+    return _Build(name, [_nvcc()], KERNELS[name], NVCC_FLAGS, HEADERS)
 
 
 def start_all() -> list[_Build]:

@@ -8,161 +8,396 @@
 // column over the whole of k, each set to 0 where it is not finite.
 //
 // Replaces the TPU kernel of alan_tpu/ops/pallas_logmmexp.py:
-//   logmmexp_rowmax_kernel, logmmexp_colmax_kernel, logmmexp_kernel
+//   logmmexp_prep_kernel + logmmexp_product_kernel
 //     <- _kernel (pallas_logmmexp.py:28)
 // The TPU kernel holds a whole (M, K) and (K, N) block in VMEM and takes the
-// maxes over it.  A block here holds one 64 x 64 output tile and streams k
-// in slices of 16, so the maxes over the whole of k come from a pre-pass
-// (two small kernels) before the product.
+// maxes over it.  Here a pre-pass takes the maxes over the whole of k and
+// writes every exponential once, and the product kernel streams k.
 //
-// What bounds it on the card.  At the chain steps it serves (K >= 128, the
-// AR(1) model at K = 1000: (2, 1000, 1000) @ (2, 1000, 1000)) the product is
-// 2 M N K = 2e9 f32 FLOP per matrix against 12 MB of operands and result, so
-// it is bound by operations.  The products must be f32-grade (the operands
-// are exponentials of log-weights), so they run as plain f32 FMAs on the
-// CUDA cores, whose peak is 67 TFLOP/s, and never in TF32.
+// What bounds it on the card.  At the chain steps it serves (K >= 128; the
+// AR(1) model at K = 1000: (2, 1000, 1000) @ (2, 1000, 1000) and (1, 1000,
+// 1000) @ (1, 1000, 1000)) the product is 2 M N K = 2e9 FLOP per matrix
+// against 12 MB of operands and result, so it is bound by operations.  The
+// products must be f32-grade (the operands are exponentials of
+// log-weights): plain f32 FMAs on the CUDA cores (67 TFLOP/s) take 0.060 ms
+// at (2, 1000, 1000, 1000); three TF32 products per multiply-add on the
+// tensor cores (3xTF32, 495 TFLOP/s) take 0.024 ms.
 //
-// What the design does about it.  A classic register-tiled GEMM: 256
-// threads per block, each accumulating a 4 x 4 patch of the tile (rows
-// ty + 16 r, columns tx + 16 c, so reads of the staged slices are broadcasts
-// or consecutive words); exp(. - max) is applied once per element as a slice
-// is staged into shared memory, and log(. + FLT_MIN) + shifts in the
-// epilogue, so the product never goes to device memory.  Ragged edges are
-// masked (zeros in the staged slices, no stores past the edge).
+// What the design does about it:
+// * A pre-pass (logmmexp_prep_kernel, one launch for A's rows and B's
+//   columns) takes each max with a block reduction, then writes each
+//   exponential once, split into e_hi = tf32(e) and e_lo = tf32(e - e_hi)
+//   (cvt.rna), into a scratch already in the layout wgmma reads: K-major
+//   core matrices (hopper.cuh), so B goes in transposed, (N, K), since wgmma
+//   takes TF32 operands only K-major.  The scratch holds, for each batch,
+//   each tile of rows (BM of A, BN of B) and each stage of BK k, the hi part
+//   and then the lo part; rows past an edge and k past K are zeros, so every
+//   stage is one contiguous, 16-byte aligned block whatever the shape (K =
+//   257 included).  A block takes 8 consecutive rows of A or columns of B,
+//   its warps reading along rows in memory, and writes whole core matrices.
+//   The pass waits mostly on its loads, so a block has 512 threads (256 and
+//   1024 were slower on the card, and blocks of 32 columns of B much
+//   slower; PERF.md).
+// * The products are wgmma m64nBNk8 TF32 products, three a k step (hi.lo,
+//   lo.hi, hi.hi; the dropped lo.lo is ~2^-22 of each term): f32 grade
+//   where one TF32 product keeps ~3 digits.  The tensor cores round their
+//   sums toward zero, so one accumulator over all of K drifts by up to an
+//   ulp of the partial sum per product (as the lowrank kernels found on the
+//   card); each stage of BK = 32 k (12 products) therefore starts a
+//   fresh sum (scale-d 0), which joins the f32 accumulator by an add that
+//   rounds to nearest.
+// * Feeding: a block of two consumer warpgroups (64 rows of A each, BN
+//   columns, BM = 128) and a producer warpgroup, which hands its registers
+//   to the consumers (setmaxnreg: 40 against 232 a thread, so the
+//   accumulator and two stage sums, 192 floats at BN = 128, fit without
+//   spilling; at 168 registers they spilled).  The producer's lane 0 keeps a
+//   ring of STAGES stages of shared memory full by TMA bulk copies (A's hi
+//   and lo, B's hi and lo: two copies a stage) on a "full" mbarrier per
+//   stage, and waits on an "empty" mbarrier per stage before reusing it.
+//   The consumers keep two stage sums in flight: they issue stage c's
+//   products, then wait until only those are pending (wgmma.wait_group 1),
+//   add stage c - 1's sum into the accumulator and release its stage, so
+//   the wait on one stage's products overlaps the next stage's.
+// * Tiles: BN = 128 or 64, chosen by the host from the shape: at (2, 1000,
+//   1000, 1000) 128 x 128 tiles make 128 blocks for 132 SMs; at batch 1
+//   they would make 64, and 128 x 64 tiles make 128.  One block an SM
+//   (192 KB of ring).
+// * Scaling.  The exponentials are stored times 2^SCALE_BITS (exact), so a
+//   product of two of them is 2^(2 SCALE_BITS) times the true one.  Terms
+//   whose products would fall below FLT_MIN stay normal: on the card a sum
+//   of products all below FLT_MIN came out ~1e-3 from f64 without the
+//   scale (the tensor cores lose subnormal sums), 5e-6 with it.  The
+//   epilogue takes the scale out exactly: log((acc + FLT_MIN 2^(2
+//   SCALE_BITS)) 2^-(2 SCALE_BITS)) + amax + bmax, where the first factor
+//   is >= FLT_MIN 2^(2 SCALE_BITS), so the unscaled sum is normal and
+//   rounds as the plain version's acc + FLT_MIN does.  Largest product
+//   2^64, so K up to 2^31 cannot overflow.
+// * The epilogue: the log in registers, stored straight to out; the
+//   product never reaches device memory.
 //
-// Plain C interface (bound with ctypes): launches on the given stream,
-// allocates nothing (amax, bmax are the caller's scratch) and returns
-// cudaGetLastError(), or an error code before any launch when the sizes are
-// out of range.
+// ptxas (sm_90a, -O3) and the SASS: see scripts/torch_logmmexp_probe.py
+// and PERF.md.
+//
+// Plain C interface (bound with ctypes): every entry point launches on the
+// given stream, allocates nothing (amax, bmax and the scratch of
+// logmmexp_scratch_floats are the caller's) and returns cudaGetLastError(),
+// or an error code before any launch when the sizes are out of range.
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
-constexpr int MAX_THREADS = 256;
+constexpr int BM = 128;                     // rows of A a block
+constexpr int BK = 32;                      // k a stage, one fresh tensor-core sum
+constexpr int KB = BK / 4;                  // k blocks of 4 a row group holds
+constexpr int CONSUMERS = 2;                // warpgroups, 64 rows of A each
+constexpr int THREADS = (CONSUMERS + 1) * 128;  // and the producer's warpgroup
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // setmaxnreg: 64512 of 65536
+constexpr size_t RING_BYTES = 192 * 1024;
+constexpr int PREP_THREADS = 512;
 constexpr size_t MAX_GRID_X = 2147483647u;
-constexpr size_t MAX_GRID_Y = 65535u;
 
-__device__ __forceinline__ float finite_or_zero(float m) {
-  return isfinite(m) ? m : 0.f;
+constexpr int SCALE_BITS = 32;              // the power of two on every exponential
+constexpr double SCALE = (double)(1ull << SCALE_BITS);
+constexpr float EXP_SCALE = (float)SCALE;               // 2^SCALE_BITS
+constexpr float TINY_SCALED = (float)(FLT_MIN * SCALE * SCALE);
+constexpr float UNSCALE = (float)(1.0 / (SCALE * SCALE));
+
+// Floats of one stage of one operand tile of R rows: hi and lo.
+__host__ __device__ constexpr int stage_floats(int R) { return 2 * R * BK; }
+
+// The stages the ring holds at tile width BN.
+__host__ __device__ constexpr int ring_stages(int BN) {
+  return (int)(RING_BYTES / (sizeof(float) * (stage_floats(BM) + stage_floats(BN))));
 }
 
-// amax[r] over the K entries of row r of A (rows = nb * M); one warp a row.
-__global__ void logmmexp_rowmax_kernel(const float* __restrict__ A,
-                                       float* __restrict__ amax, size_t rows,
-                                       int K) {
-  const size_t warp = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
-  const int lane = threadIdx.x % 32;
-  if (warp >= rows) return;
-  const float* row = A + warp * K;
+// ---- the pre-pass --------------------------------------------------------------
+// One block a group of 8 consecutive rows of a K-major operand X for one
+// batch element: the first nb * m_tiles * BM / 8 blocks take A's rows, x(r,
+// k) = A[b][r][k], the others B's columns, x(r, k) = B[b][k][r].  Writes the
+// group's maxes (rows inside the edge) and its core matrices of exp(x - max)
+// * 2^SCALE_BITS, hi and lo, in every stage of its tile (BM rows of A, bn
+// of B).  grid (nb * (m_tiles * BM + n_tiles * bn) / 8), PREP_THREADS
+// threads.
+__global__ void __launch_bounds__(PREP_THREADS)
+logmmexp_prep_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                     float* __restrict__ amax, float* __restrict__ bmax,
+                     float* __restrict__ split, int nb, int M, int K, int N, int bn,
+                     int m_tiles, int n_tiles, int k_stages) {
+  __shared__ float red[8][PREP_THREADS / 8];
+  __shared__ float mx[8];
+  const size_t blocks_a = (size_t)nb * m_tiles * (BM / 8);
+  const bool cols = blockIdx.x >= blocks_a;  // B's columns, coalesced along n
+  const int R = cols ? bn : BM, tiles = cols ? n_tiles : m_tiles, rows = cols ? N : M;
+  const size_t blk = cols ? blockIdx.x - blocks_a : blockIdx.x;
+  const int groups = tiles * (R / 8);
+  const size_t b = blk / groups;
+  const int tid = threadIdx.x, r0 = (int)(blk % groups) * 8;
+  const size_t rs = cols ? 1 : K, ks = cols ? N : 1;
+  const float* Xb = (cols ? B : A) + b * rows * K;
+  float* max_out = (cols ? bmax : amax) + b * rows;
+  float* tile = split + (cols ? (size_t)nb * m_tiles * k_stages * stage_floats(BM) : 0) +
+                (b * tiles + r0 / R) * k_stages * stage_floats(R);
+
+  // the max of each of the 8 rows: A's rows two warps each, lanes along k;
+  // B's columns 8 lanes each, lanes along the row in memory
+  const int r = cols ? tid & 7 : (tid >> 5) & 7;
+  const int q = cols ? tid >> 3 : (tid & 31) | (tid >> 8) << 5;
   float m = -INFINITY;
-  for (int k = lane; k < K; k += 32) m = fmaxf(m, row[k]);
-  for (int off = 16; off > 0; off /= 2)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if (lane == 0) amax[warp] = finite_or_zero(m);
-}
-
-// bmax[b, n] over the K entries of column n of B[b]; one thread a column.
-__global__ void logmmexp_colmax_kernel(const float* __restrict__ B,
-                                       float* __restrict__ bmax, size_t cols,
-                                       int K, int N) {
-  const size_t c = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cols) return;
-  const size_t b = c / N, n = c % N;
-  const float* col = B + b * (size_t)K * N + n;
-  float m = -INFINITY;
-  for (int k = 0; k < K; ++k) m = fmaxf(m, col[(size_t)k * N]);
-  bmax[c] = finite_or_zero(m);
-}
-
-// grid.x = b * n_tiles + (column tile), grid.y = row tile.
-__global__ void __launch_bounds__(THREADS)
-logmmexp_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                const float* __restrict__ amax, const float* __restrict__ bmax,
-                float* __restrict__ out, int M, int K, int N, int n_tiles) {
-  __shared__ float As[BK][BM];
-  __shared__ float Bs[BK][BN];
-  const size_t b = blockIdx.x / n_tiles;
-  const int n0 = (blockIdx.x % n_tiles) * BN;
-  const int m0 = blockIdx.y * BM;
-  const int tx = threadIdx.x % (BN / TN), ty = threadIdx.x / (BN / TN);
-  const float* Ab = A + b * (size_t)M * K;
-  const float* Bb = B + b * (size_t)K * N;
-  const float* am = amax + b * M;
-  const float* bm = bmax + b * N;
-
-  float acc[TM][TN] = {};
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int e = threadIdx.x; e < BM * BK; e += THREADS) {
-      const int r = e / BK, kk = e % BK;
-      const int m = m0 + r, k = k0 + kk;
-      As[kk][r] = (m < M && k < K) ? expf(Ab[(size_t)m * K + k] - am[m]) : 0.f;
-    }
-    for (int e = threadIdx.x; e < BK * BN; e += THREADS) {
-      const int kk = e / BN, c = e % BN;
-      const int k = k0 + kk, n = n0 + c;
-      Bs[kk][c] = (k < K && n < N) ? expf(Bb[(size_t)k * N + n] - bm[n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], bv[TN];
-#pragma unroll
-      for (int r = 0; r < TM; ++r) a[r] = As[kk][ty + 16 * r];
-#pragma unroll
-      for (int c = 0; c < TN; ++c) bv[c] = Bs[kk][tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < TM; ++r)
-#pragma unroll
-        for (int c = 0; c < TN; ++c) acc[r][c] = fmaf(a[r], bv[c], acc[r][c]);
-    }
-    __syncthreads();
+  if (r0 + r < rows) {
+    const float* x = Xb + (size_t)(r0 + r) * rs;
+#pragma unroll 4
+    for (int k = q; k < K; k += PREP_THREADS / 8) m = fmaxf(m, x[k * ks]);
   }
+  red[r][q] = m;
+  __syncthreads();
+  if (tid < 8) {
+    float v = -INFINITY;
+    for (int j = 0; j < PREP_THREADS / 8; ++j) v = fmaxf(v, red[tid][j]);
+    v = finite_or_zero(v);
+    mx[tid] = v;
+    if (r0 + tid < rows) max_out[r0 + tid] = v;
+  }
+  __syncthreads();
 
-  float* ob = out + b * (size_t)M * N;
+  // element e: row e & 7 of the group, k block e >> 3; 8 threads write one
+  // core matrix (128 bytes), a warp four consecutive ones
+  const int rg = (r0 % R) / 8;
+  const int kbs = k_stages * KB;
+  for (int e = tid; e < kbs * 8; e += PREP_THREADS) {
+    const int rr = e & 7, kb = e >> 3;
+    const int s = kb / KB, kk = kb - s * KB;
+    float hi[4], lo[4];
 #pragma unroll
-  for (int r = 0; r < TM; ++r) {
-    const int m = m0 + ty + 16 * r;
-    if (m >= M) continue;
-#pragma unroll
-    for (int c = 0; c < TN; ++c) {
-      const int n = n0 + tx + 16 * c;
-      if (n < N)
-        ob[(size_t)m * N + n] = logf(acc[r][c] + FLT_MIN) + am[m] + bm[n];
+    for (int j = 0; j < 4; ++j) {
+      const int k = 4 * kb + j;
+      float v = 0.f;
+      if (r0 + rr < rows && k < K)
+        v = expf(Xb[(size_t)(r0 + rr) * rs + (size_t)k * ks] - mx[rr]) * EXP_SCALE;
+      hi[j] = to_tf32(v);
+      lo[j] = to_tf32(v - hi[j]);
     }
+    float* st = tile + (size_t)s * stage_floats(R) + ((size_t)rg * KB + kk) * 32 + rr * 4;
+    *reinterpret_cast<float4*>(st) = make_float4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<float4*>(st + R * BK) = make_float4(lo[0], lo[1], lo[2], lo[3]);
   }
 }
 
-size_t cdiv(size_t a, size_t b) { return (a + b - 1) / b; }
+// ---- the product --------------------------------------------------------------
+// grid (nb * m_tiles * n_tiles), THREADS threads, ring_stages(BN) stages of
+// dynamic shared memory and 2 mbarriers a stage.  Sa, Sb: the pre-pass's
+// scratch of A (tiles of BM rows) and of B (tiles of BN columns).
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+logmmexp_product_kernel(const float* __restrict__ Sa, const float* __restrict__ Sb,
+                        const float* __restrict__ amax, const float* __restrict__ bmax,
+                        float* __restrict__ out, int M, int N, int m_tiles, int n_tiles,
+                        int k_stages) {
+  constexpr int STAGES = ring_stages(BN);
+  constexpr int A_FLOATS = stage_floats(BM), B_FLOATS = stage_floats(BN);
+  constexpr int STAGE = A_FLOATS + B_FLOATS;
+  constexpr int ACC = BN / 2;  // a thread's floats of a 64 x BN tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+
+  const int nt = blockIdx.x % n_tiles;
+  const int mt = (blockIdx.x / n_tiles) % m_tiles;
+  const size_t b = blockIdx.x / ((size_t)n_tiles * m_tiles);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s]);
+      mbar_init(&empty[s], CONSUMERS * 4);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= CONSUMERS * 4) {
+    // producer: stage c of A's tile (b, mt) and B's tile (b, nt) into slot
+    // c % STAGES once its previous occupant is released; its warpgroup
+    // hands most of its registers to the consumers
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (warp == CONSUMERS * 4 && lane == 0) {
+      const float* a = Sa + (b * m_tiles + mt) * (size_t)k_stages * A_FLOATS;
+      const float* bb = Sb + (b * n_tiles + nt) * (size_t)k_stages * B_FLOATS;
+      for (int c = 0; c < k_stages; ++c) {
+        const int s = c % STAGES;
+        if (c >= STAGES) mbar_wait(&empty[s], (unsigned)((c / STAGES - 1) & 1));
+        float* slot = ring + s * STAGE;
+        mbar_expect(&full[s], STAGE * sizeof(float));
+        bulk_copy(slot, a + (size_t)c * A_FLOATS, A_FLOATS * sizeof(float), &full[s]);
+        bulk_copy(slot + A_FLOATS, bb + (size_t)c * B_FLOATS, B_FLOATS * sizeof(float),
+                  &full[s]);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns rows 64 wg + [0, 64) of the tile; element
+    // [4n + 2h + e] of a thread's accumulator is row 16 wq + 8h + gq of them
+    // and column 8n + 2tq + e
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+    const int wg = warp >> 2, wq = warp & 3, gq = lane >> 2, tq = lane & 3;
+    const uint64_t ah = wgmma_desc(ring + wg * 64 * BK, KB);
+    const uint64_t al = wgmma_desc(ring + BM * BK + wg * 64 * BK, KB);
+    const uint64_t bh = wgmma_desc(ring + A_FLOATS, KB);
+    const uint64_t bl = wgmma_desc(ring + A_FLOATS + BN * BK, KB);
+    constexpr uint64_t SLOT = STAGE * sizeof(float) / 16;  // a slot, in descriptor units
+
+    float acc[ACC], t0[ACC], t1[ACC];
+  #pragma unroll
+    for (int k = 0; k < ACC; ++k) acc[k] = 0.f;
+
+    // stage c's 3 * BK / 8 products into a fresh sum t
+    auto issue = [&](float(&t)[ACC], int c) {
+      const int s = c % STAGES;
+      mbar_wait(&full[s], (unsigned)((c / STAGES) & 1));
+      const uint64_t so = s * SLOT;
+      fence_operand(t);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+  #pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const uint64_t o = so + 16 * j;  // two core matrices further along k
+        wgmma_tf32(t, ah + o, bl + o, j != 0);
+        wgmma_tf32(t, al + o, bh + o, 1);
+        wgmma_tf32(t, ah + o, bh + o, 1);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    };
+    // stage c's sum t is complete: into acc, and its slot back to the producer
+    auto retire = [&](float(&t)[ACC], int c) {
+      fence_operand(t);
+  #pragma unroll
+      for (int k = 0; k < ACC; ++k) acc[k] += t[k];
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[c % STAGES]);
+    };
+    for (int c = 0;; c += 2) {
+      issue(t0, c);
+      if (c > 0) {
+        asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+        retire(t1, c - 1);
+      }
+      if (c + 1 == k_stages) {
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        retire(t0, c);
+        break;
+      }
+      issue(t1, c + 1);
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      retire(t0, c);
+      if (c + 2 == k_stages) {
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        retire(t1, c + 1);
+        break;
+      }
+    }
+
+    // epilogue: log(acc + tiny) + shifts, the scale taken out exactly
+    const int n0 = nt * BN;
+    const float* am = amax + b * M;
+    const float* bm = bmax + b * N;
+    float* ob = out + b * M * (size_t)N;
+    const bool pairs = (N & 1) == 0;  // two columns a store
+  #pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = mt * BM + 64 * wg + 16 * wq + 8 * h + gq;
+      if (m >= M) continue;
+      const float sa = am[m];
+      float* orow = ob + (size_t)m * N;
+  #pragma unroll
+      for (int n = 0; n < BN / 8; ++n) {
+        const int col = n0 + 8 * n + 2 * tq;
+        float v[2];
+  #pragma unroll
+        for (int e = 0; e < 2; ++e)
+          v[e] = logf((acc[4 * n + 2 * h + e] + TINY_SCALED) * UNSCALE) + sa +
+                 (col + e < N ? bm[col + e] : 0.f);
+        if (pairs && col + 1 < N) {
+          *reinterpret_cast<float2*>(orow + col) = make_float2(v[0], v[1]);
+        } else {
+          if (col < N) orow[col] = v[0];
+          if (col + 1 < N) orow[col + 1] = v[1];
+        }
+      }
+    }
+  }  // consumers
+}
+
+struct Layout {
+  size_t m_tiles, n_tiles, k_stages, a_floats, b_floats;
+};
+
+bool layout(int nb, int M, int K, int N, int bn, Layout* L) {
+  if (nb < 1 || M < 1 || K < 1 || N < 1 || (bn != 64 && bn != 128)) return false;
+  L->m_tiles = cdiv(M, BM);
+  L->n_tiles = cdiv(N, bn);
+  L->k_stages = cdiv(K, BK);
+  L->a_floats = (size_t)nb * L->m_tiles * L->k_stages * stage_floats(BM);
+  L->b_floats = (size_t)nb * L->n_tiles * L->k_stages * stage_floats(bn);
+  return nb * L->m_tiles * L->n_tiles <= MAX_GRID_X &&
+         nb * (L->m_tiles * BM + L->n_tiles * bn) / 8 <= MAX_GRID_X;
+}
+
+template <int BN>
+int launch_product(const float* split, const float* amax, const float* bmax, float* out,
+                   int nb, int M, int N, const Layout& L, cudaStream_t st) {
+  constexpr int STAGES = ring_stages(BN);
+  const size_t smem =
+      (size_t)STAGES * sizeof(float) * (stage_floats(BM) + stage_floats(BN)) +
+      2 * STAGES * sizeof(uint64_t);
+  auto kernel = logmmexp_product_kernel<BN>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(unsigned)(nb * L.m_tiles * L.n_tiles), THREADS, smem, st>>>(
+      split, split + L.a_floats, amax, bmax, out, M, N, (int)L.m_tiles, (int)L.n_tiles,
+      (int)L.k_stages);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-// A: (nb, M, K), B: (nb, K, N), out: (nb, M, N); amax: nb * M and bmax:
-// nb * N floats of scratch.
-int logmmexp_fwd(const float* A, const float* B, float* amax, float* bmax,
-                 float* out, int nb, int M, int K, int N, void* stream) {
-  if (nb < 1 || M < 1 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
-  const size_t n_tiles = cdiv(N, BN);
-  const size_t m_tiles = cdiv(M, BM);
-  const size_t rows = (size_t)nb * M, cols = (size_t)nb * N;
-  if (n_tiles * nb > MAX_GRID_X || m_tiles > MAX_GRID_Y ||
-      cdiv(rows * 32, MAX_THREADS) > MAX_GRID_X)
-    return (int)cudaErrorInvalidConfiguration;
+// Floats of the scratch that logmmexp_prepass writes and logmmexp_product
+// reads, for (nb, M, K) @ (nb, K, N) at tile width bn (64 or 128); 0 where
+// the sizes are out of range.
+long long logmmexp_scratch_floats(int nb, int M, int K, int N, int bn) {
+  Layout L;
+  if (!layout(nb, M, K, N, bn, &L)) return 0;
+  return (long long)(L.a_floats + L.b_floats);
+}
+
+// A: (nb, M, K), B: (nb, K, N) -> amax: nb * M, bmax: nb * N floats and the
+// scratch (logmmexp_scratch_floats): A's exponentials, then B's.
+int logmmexp_prepass(const float* A, const float* B, float* amax, float* bmax,
+                     float* split, int nb, int M, int K, int N, int bn, void* stream) {
+  Layout L;
+  if (!layout(nb, M, K, N, bn, &L)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  logmmexp_rowmax_kernel<<<(unsigned)cdiv(rows * 32, MAX_THREADS), MAX_THREADS,
-                           0, st>>>(A, amax, rows, K);
-  logmmexp_colmax_kernel<<<(unsigned)cdiv(cols, MAX_THREADS), MAX_THREADS, 0,
-                           st>>>(B, bmax, cols, K, N);
-  logmmexp_kernel<<<dim3((unsigned)(n_tiles * nb), (unsigned)m_tiles), THREADS,
-                    0, st>>>(A, B, amax, bmax, out, M, K, N, (int)n_tiles);
+  const size_t blocks = nb * (L.m_tiles * BM + L.n_tiles * bn) / 8;
+  logmmexp_prep_kernel<<<(unsigned)blocks, PREP_THREADS, 0, st>>>(
+      A, B, amax, bmax, split, nb, M, K, N, bn, (int)L.m_tiles, (int)L.n_tiles,
+      (int)L.k_stages);
   return (int)cudaGetLastError();
+}
+
+// out: (nb, M, N) from the pre-pass's amax, bmax and scratch.
+int logmmexp_product(const float* split, const float* amax, const float* bmax, float* out,
+                     int nb, int M, int K, int N, int bn, void* stream) {
+  Layout L;
+  if (!layout(nb, M, K, N, bn, &L)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return bn == 128 ? launch_product<128>(split, amax, bmax, out, nb, M, N, L, st)
+                   : launch_product<64>(split, amax, bmax, out, nb, M, N, L, st);
 }
 
 }  // extern "C"

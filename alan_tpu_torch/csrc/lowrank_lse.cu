@@ -107,6 +107,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int MODE_FWD = 0;  // out
@@ -128,20 +130,12 @@ constexpr size_t MAX_GRID_X = 2147483647u;
 constexpr size_t MAX_GRID_Y = 65535u;
 constexpr size_t MAX_SMEM = 227 * 1024;    // opt-in shared memory a block
 
-__host__ __device__ __forceinline__ size_t cdiv(size_t a, size_t b) { return (a + b - 1) / b; }
+// ---- tensor-core building blocks (more in hopper.cuh) ------------------------
 
-__device__ __forceinline__ float finite_or_zero(float m) {
-  return isfinite(m) ? m : 0.f;
-}
-
-// ---- tensor-core building blocks -------------------------------------------
-
-// Shared-memory layout of a tf32 operand chunk for wgmma, K-major without
-// swizzle: "core matrices" of 8 rows x 4 features (128 contiguous bytes, a
-// row every 16 bytes), the feature blocks of one 8-row group next to each
-// other (leading byte offset 128) and the 8-row groups one after the other
-// (stride byte offset 128 * FC / 4).  A chunk holds FC features, a multiple
-// of 8 (one wgmma k step); features past F are zeros.
+// A tf32 operand chunk in shared memory is in wgmma's K-major core layout
+// (hopper.cuh) with the features as k: FC features, a multiple of 8 (one
+// wgmma k step), a row group holding FC / 4 k blocks; features past F are
+// zeros.
 
 // Bytes of dynamic shared memory: the mbarriers of the two ring slots; the
 // resident rows (two 64-row tiles, hi and lo, once or, with NCH > 1 chunks,
@@ -170,38 +164,6 @@ inline void tc_chunks(int F, bool pv, int nv, int* fc, int* nch) {
   *fc = (int)(cdiv(cdiv(fp, *nch), 8) * 8);
 }
 
-__device__ __forceinline__ float to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
-// wgmma shared-memory descriptor of a K-major, unswizzled operand at p
-__device__ __forceinline__ uint64_t wgmma_desc(const float* p, int kb) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)((128 * kb) >> 4) << 32);
-}
-
-// d (+)= A . B^T for a 64 x 8 A and a 64 x 8 B (both K-major, tf32), the
-// warpgroup's 64 x 64 f32 tile in d; scale_d 0 starts the sum afresh.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a, uint64_t b,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// Keeps the compiler from moving reads or writes of r across the
-// asynchronous products that use it.
-__device__ __forceinline__ void fence_operand(float (&r)[32]) {
-#pragma unroll
-  for (int k = 0; k < 32; ++k) asm volatile("" : "+f"(r[k])::"memory");
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -212,44 +174,6 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
                : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"((unsigned)__cvta_generic_to_shared(bar)), "r"(parity)
-        : "memory");
-}
-
-// One thread: the barrier's next phase completes when bytes have arrived
-// by the bulk copies that follow.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// One thread: bytes (a multiple of 16) from src to dst (both 16-byte
-// aligned) by TMA, counted on bar.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"((unsigned)__cvta_generic_to_shared(dst)),
-      "l"(src), "r"(bytes), "r"((unsigned)__cvta_generic_to_shared(bar))
-      : "memory");
 }
 
 // ---- the hi/lo split, one pass before the products --------------------------

@@ -36,10 +36,18 @@ without its final line:
                 gradients rtol 1e-4 / atol 1e-5 (with the same f64 rule),
                 bitwise equality reported, launches = the plan's length;
                 the kernels' logarithm against logf on every float in
-                [FLT_MIN, 128] (no difference allowed).  The fused log-matmul kernel at (2, 1000,
-                1000) @ (2, 1000, 1000), a ragged shape and -inf rows:
-                rtol/atol 1e-5.  Times beside the plain version's and the
-                dense torch route's (``ALAN_TPU_NO_SMALLK_CHAIN=1``);
+                [FLT_MIN, 128] (no difference allowed).  Their times beside the plain
+                version's and the dense torch route's
+                (``ALAN_TPU_NO_SMALLK_CHAIN=1``).  The fused log-matmul: its
+                pre-pass bitwise against its plain version; the whole at
+                rtol/atol 1e-5 at both levels of the AR(1) chain ((2, 1000,
+                1000) @ (2, 1000, 1000) and batch 1), a ragged K = 257, -inf
+                rows and columns, K = 128 with a batch, and sums of products
+                in [e^-80, e^-78] (above FLT_MIN, out near 0); products
+                below FLT_MIN reported beside the plain version and f64, not
+                gated; the pre-pass, the product and the whole timed at both
+                levels beside the plain version and the f32 and 3xTF32
+                bounds;
 3. main_path -- grouped MovieLens at full width (M=300, N=5, d_z=18), K=1000,
                 data from a fixed numpy seed, ``train.qem`` steps on the card;
                 the launch counters are zeroed just before and read just
@@ -61,9 +69,11 @@ without its final line:
                 particles, small-K kernels against the dense chain route:
                 ELBO within 1e-4 relative, the Q state within rtol/atol 1e-4;
 7. ar1_large_k -- the AR(1) model at K=1000, whose chain runs through the
-                fused log-matmul kernel: 20 ELBO draws must bracket the
-                exact Kalman log-likelihood by the criterion of
-                ``tests/test_problem_vs_itself.py:141-160``.
+                fused log-matmul kernel (2 launches an ELBO, each of them
+                required): 20 ELBO draws must bracket the exact Kalman
+                log-likelihood by the criterion of
+                ``tests/test_problem_vs_itself.py:141-160``; then a profile
+                of two more ELBOs.
 
 Each path (phases 3, 5, 7) is driven with the launch counters set to 0
 just before it and read just after.  Then the ``kernels`` line, the card's
@@ -93,8 +103,9 @@ K_MAIN, QEM_STEPS = 1000, 5
 #: covid's log_infected chain at K=30: nRs * K_npis chains, T = 109 days, K
 COVID_CHAIN = (92 * 30, 109, 30)
 K_COVID = 30
-#: nb, M, K, N of the first chain level of the AR(1) model at K=1000
+#: nb, M, K, N of the two chain levels of the AR(1) model at K=1000
 FUSED_MAIN = (2, 1000, 1000, 1000)
+FUSED_TOP = (1, 1000, 1000, 1000)
 K_AR1, AR1_ELBOS = 1000, 20
 
 FAILURES = []
@@ -127,6 +138,36 @@ def cuda_ms(fn, reps=7, inner=3):
     return statistics.median(times)
 
 
+def graph_ms(fn, n=20, reps=5):
+    """Device time of one call: ``n`` calls captured in a CUDA graph, the
+    median over ``reps`` replays (CUDA events) divided by ``n``.  For a
+    kernel shorter than its host launch, where back-to-back eager calls
+    time the host."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / n)
+    del graph
+    return statistics.median(times)
+
+
 def bound(nbytes, flops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
@@ -146,10 +187,11 @@ def phase_build():
 
 # ---- phase 2 ------------------------------------------------------------------
 
-def _check(res, phase, tag, name, got, want, exact, rtol, atol, f64_rule):
+def _check(res, phase, tag, name, got, want, exact, rtol, atol, f64_rule, gate=True):
     """Record ``got`` against the plain version ``want``.  Where
     ``f64_rule`` holds, a result that misses the bound passes if it is at
-    least as close as the plain version to the f64 evaluation ``exact``."""
+    least as close as the plain version to the f64 evaluation ``exact``.
+    Without ``gate`` the result is only recorded."""
     import torch
     err = (got - want).abs().max().item()
     close = torch.allclose(got, want, rtol=rtol, atol=atol)
@@ -157,7 +199,7 @@ def _check(res, phase, tag, name, got, want, exact, rtol, atol, f64_rule):
     plain64 = (want.double() - exact).abs().max().item()
     res[name] = {"max_abs_err": err, "within_tol": close,
                  "err_vs_f64": err64, "plain_err_vs_f64": plain64}
-    if not close and not (f64_rule and err64 <= plain64):
+    if gate and not close and not (f64_rule and err64 <= plain64):
         res["ok"] = False
         fail(phase, f"{tag} {name}: max abs err {err} "
                     f"(vs f64 {err64}, plain vs f64 {plain64})")
@@ -481,10 +523,9 @@ def phase_chain_kernels():
     }
 
 
-def _check_fused(tag, shape, seed, inf=False):
+def _fused_operands(shape, seed, inf=False):
     import numpy as np
     import torch
-    from alan_tpu_torch.ops import logmmexp_kernel as lk
     nb, M, K, N = shape
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((nb, M, K), dtype=np.float32) * 3
@@ -492,36 +533,160 @@ def _check_fused(tag, shape, seed, inf=False):
     if inf:
         A[:, ::7] = -np.inf
         B[:, :, 5] = -np.inf
-    A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
+    return torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
+
+
+def _small_sum_operands(shape, seed, gap, edge, top):
+    """A's row maxima at k = 0 and B's column maxima at k = 1, each within 1
+    of ``top``; every other entry ``gap`` (a uniform range) below its max,
+    and the entries at the other operand's max k ``edge`` below, so every
+    product of two exponentials lies in e^-[2 gap] (= e^-[edge]).  The
+    shifts put out near 0, so the 1e-5 tolerance bounds the sum's relative
+    error."""
+    import numpy as np
+    import torch
+    nb, M, K, N = shape
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(top - 1, top + 1, (nb, M, 1))
+    d = rng.uniform(top - 1, top + 1, (nb, 1, N))
+    A = c - rng.uniform(*gap, (nb, M, K))
+    B = d - rng.uniform(*gap, (nb, K, N))
+    A[:, :, 0], B[:, 1, :] = c[:, :, 0], d[:, 0, :]
+    A[:, :, 1] = c[:, :, 0] - rng.uniform(*edge, (nb, M))
+    B[:, 0, :] = d[:, 0, :] - rng.uniform(*edge, (nb, N))
+    return (torch.from_numpy(A.astype(np.float32)).cuda(),
+            torch.from_numpy(B.astype(np.float32)).cuda())
+
+
+def _f64_logmmexp(A, B):
+    """The function in float64, with float32's tiny inside the log."""
+    import torch
+    from alan_tpu_torch.ops import logmmexp_kernel as lk
+    a_max, b_max = lk._shifts(A.double(), B.double())
+    C = torch.matmul(torch.exp(A.double() - a_max), torch.exp(B.double() - b_max))
+    return torch.log(C + lk._TINY) + a_max + b_max
+
+
+def _check_fused(tag, A, B, gate=True):
+    """The fused kernel against its plain version at rtol/atol 1e-5 (only
+    reported where ``gate`` is false), with both beside float64."""
+    import torch
+    from alan_tpu_torch.ops import logmmexp_kernel as lk
+    before = lk.LAUNCHES
     got = lk.logmmexp_fused(A, B)
-    want = lk.reference_logmmexp(A, B)
-    exact = lk.reference_logmmexp(A.double(), B.double())
     torch.cuda.synchronize()
+    launches = lk.LAUNCHES - before
+    want = lk.reference_logmmexp(A, B)
+    exact = _f64_logmmexp(A, B)
+    torch.cuda.synchronize()
+    nb, M, K = A.shape
     res = {"phase": "kernels", "kernel": "logmmexp", "case": tag,
-           "nb_M_K_N": list(shape), "ok": True}
-    _check(res, "kernels", tag, "out", got, want, exact, 1e-5, 1e-5, False)
-    if not torch.isfinite(got).all():
+           "nb_M_K_N": [nb, M, K, B.shape[2]],
+           "tile_n": lk.tile_n(nb, M, B.shape[2], lk._sms(A.device)),
+           "launches": launches, "gated": gate, "ok": True}
+    _check(res, "kernels", tag, "out", got, want, exact, 1e-5, 1e-5, False, gate)
+    if not gate:
+        res["first"] = {"kernel": got[0, 0, 0].item(), "plain": want[0, 0, 0].item(),
+                        "f64": exact[0, 0, 0].item()}
+    if not torch.isfinite(got).all() or launches != 1:
         res["ok"] = False
-        fail("kernels", f"{tag}: non-finite output")
+        fail("kernels", f"{tag}: non-finite output or {launches} launches")
     emit(res)
-    return res, A, B
+    return res
+
+
+def _check_prepass(tag, A, B):
+    """The pre-pass kernels against their plain version: bitwise."""
+    import torch
+    from alan_tpu_torch.ops import logmmexp_kernel as lk
+    nb, M, K = A.shape
+    N = B.shape[2]
+    bn = lk.tile_n(nb, M, N, lk._sms(A.device))
+    got = lk._prepass(A, B, bn)
+    want = lk.reference_prepass(A, B, bn)
+    torch.cuda.synchronize()
+    diff = [int((g != w).sum().item()) for g, w in zip(got, want)]
+    res = {"phase": "kernels", "kernel": "logmmexp_prepass", "case": tag,
+           "nb_M_K_N": [nb, M, K, N], "tile_n": bn,
+           "differing_amax_bmax_scratch": diff, "scratch_floats": got[2].numel(),
+           "ok": diff == [0, 0, 0]}
+    if not res["ok"]:
+        fail("kernels", f"pre-pass {tag}: {diff} elements differ from the plain version")
+    emit(res)
+
+
+def _time_fused(shape, A, B):
+    """Device times of the pre-pass, the product and the whole (CUDA graphs
+    of 20 calls: the kernels are shorter than their host calls), beside the
+    plain version's, the whole's eager time (back-to-back calls, host
+    included) and the bounds."""
+    from alan_tpu_torch.ops import logmmexp_kernel as lk
+    nb, M, K, N = shape
+    bn = lk.tile_n(nb, M, N, lk._sms(A.device))
+    pre = lk._prepass(A, B, bn)
+    prepass_ms = graph_ms(lambda: lk._prepass(A, B, bn))
+    product_ms = graph_ms(lambda: lk._product(*pre, nb, M, K, N, bn))
+    ms = graph_ms(lambda: lk._launch(A, B))
+    eager_ms = cuda_ms(lambda: lk._launch(A, B))
+    plain_ms = graph_ms(lambda: lk.reference_logmmexp(A, B))
+    io_bytes = 4 * nb * (M * K + K * N + M * N)
+    flops = 2.0 * nb * M * K * N
+    f32_ms, _ = bound(io_bytes, flops)
+    tc_ms = max(io_bytes / PEAK_BYTES_PER_S, 3 * flops / PEAK_TF32_FLOP_PER_S) * 1e3
+    # the pre-pass reads A and B and writes the maxes and the scratch; the
+    # product reads the scratch and the maxes and writes out
+    scratch = 4 * lk.scratch_floats(nb, M, K, N, bn)
+    pre_bytes = 4 * nb * (M * K + K * N + M + N) + scratch
+    prod_bound = max((scratch + 4 * nb * (M + N + M * N)) / PEAK_BYTES_PER_S,
+                     3 * flops / PEAK_TF32_FLOP_PER_S) * 1e3
+    res = {"phase": "kernels", "kernel": "logmmexp", "case": "timing",
+           "nb_M_K_N": list(shape), "tile_n": bn, "ms": ms, "prepass_ms": prepass_ms,
+           "product_ms": product_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+           "bound_f32_ms": f32_ms, "bound_3xtf32_ms": tc_ms,
+           "share_f32": f32_ms / ms, "share_3xtf32": tc_ms / ms,
+           "prepass_bound_ms": pre_bytes / PEAK_BYTES_PER_S * 1e3,
+           "product_bound_ms": prod_bound, "clocks_power": nvidia_smi_clocks()}
+    emit(res)
+    return res
 
 
 def phase_fused_kernel():
+    """The fused log-matmul: pre-pass bitwise, the whole at rtol/atol 1e-5
+    on every case, and its times at both levels of the AR(1) chain."""
     from alan_tpu_torch.ops import logmmexp_kernel as lk
-    _check_fused("ragged", (3, 130, 257, 77), seed=31)
-    _check_fused("inf_rows", (2, 70, 300, 65), seed=32, inf=True)
-    main, A, B = _check_fused("ar1_level", FUSED_MAIN, seed=30)
-    ms = cuda_ms(lambda: lk._launch(A, B))
-    plain_ms = cuda_ms(lambda: lk.reference_logmmexp(A, B), reps=5, inner=1)
-    nb, M, K, N = FUSED_MAIN
-    b, by = bound(4 * nb * (M * K + K * N + M * N), 2.0 * nb * M * K * N)
-    emit({"phase": "kernels", "kernel": "logmmexp", "case": "timing",
-          "nb_M_K_N": list(FUSED_MAIN), "ms": ms, "plain_ms": plain_ms,
-          "bound_ms": b})
-    return dict(max_abs_err=main["out"]["max_abs_err"], ms=ms,
-                plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                dense_route_ms=plain_ms)
+    from alan_tpu_torch.ops import native
+    lib = native.load("logmmexp", lk._SIGNATURES)
+    sizes = {f"{s}_{bn}": [lib.logmmexp_scratch_floats(*s, bn), lk.scratch_floats(*s, bn)]
+             for s in ((3, 130, 257, 77), FUSED_MAIN, (1, 1, 1, 1)) for bn in lk.TILE_WIDTHS}
+    if any(a != b for a, b in sizes.values()):
+        fail("kernels", f"scratch floats: the kernel and the plain version disagree {sizes}")
+    ragged = _fused_operands((3, 130, 257, 77), seed=31)
+    _check_prepass("ragged", *ragged)
+    _check_fused("ragged", *ragged)
+    inf_rows = _fused_operands((2, 70, 300, 65), seed=32, inf=True)
+    _check_prepass("inf_rows", *inf_rows)
+    _check_fused("inf_rows", *inf_rows)
+    _check_fused("k128_batch", *_fused_operands((6, 128, 128, 128), seed=33))
+    # every product in [e^-80, e^-78]: above FLT_MIN, and + FLT_MIN counts
+    _check_fused("small_sums", *_small_sum_operands((2, 300, 128, 300), 34, (39, 40),
+                                                    (78, 80), 37))
+    _check_fused("small_sums_k1000", *_small_sum_operands((1, 300, 1000, 300), 35,
+                                                          (39, 40), (78, 80), 37))
+    # every product in [e^-110, e^-90], below FLT_MIN: reported, not gated
+    _check_fused("below_flt_min", *_small_sum_operands((2, 300, 128, 300), 36, (45, 55),
+                                                       (90, 110), 43), gate=False)
+    times = {}
+    for tag, shape, seed in (("ar1_top", FUSED_TOP, 37), ("ar1_level", FUSED_MAIN, 30)):
+        A, B = _fused_operands(shape, seed)
+        _check_prepass(tag, A, B)
+        times[tag] = (_check_fused(tag, A, B), _time_fused(shape, A, B))
+    main, t = times["ar1_level"]
+    top = times["ar1_top"][1]
+    return dict(max_abs_err=main["out"]["max_abs_err"], ms=t["ms"],
+                plain_ms=t["plain_ms"], bound_ms=t["bound_3xtf32_ms"],
+                bound_by="operations", bound_f32_ms=t["bound_f32_ms"],
+                prepass_ms=t["prepass_ms"], product_ms=t["product_ms"], eager_ms=t["eager_ms"],
+                top_level_ms=top["ms"], dense_route_ms=t["plain_ms"])
 
 
 # ---- phases 3 to 7 --------------------------------------------------------------
@@ -642,11 +807,14 @@ def phase_ar1_large_k():
     float(problem.sample(K_AR1, gen).elbo_nograd())      # warm-up
     torch.cuda.synchronize()
     zero_counts()
+    draws, per_elbo = [], []
     t0 = time.perf_counter()
-    e = np.array([float(problem.sample(K_AR1, gen).elbo_nograd())
-                  for _ in range(AR1_ELBOS)])
+    for _ in range(AR1_ELBOS):
+        draws.append(float(problem.sample(K_AR1, gen).elbo_nograd()))
+        per_elbo.append(read_counts()["logmmexp"] - sum(per_elbo))
     ms = (time.perf_counter() - t0) / AR1_ELBOS * 1e3
     launches = read_counts()
+    e = np.array(draws)
     n = len(e)
     mean, var = e.mean(), e.var(ddof=1)
     se_mean, se_var = np.sqrt(var / n), np.sqrt(2 * var ** 2 / n)
@@ -662,10 +830,14 @@ def phase_ar1_large_k():
         res["ok"] = False
         fail("ar1_large_k", f"ELBO bracket {min_elbo, max_elbo} vs exact "
                             f"{ar1.known_elbo}")
-    if launches["logmmexp"] < AR1_ELBOS:
+    if per_elbo != [2] * AR1_ELBOS:
         res["ok"] = False
-        fail("ar1_large_k", f"the fused kernel did not run in every ELBO: {launches}")
+        fail("ar1_large_k", f"fused launches per ELBO {per_elbo}, not 2 in each")
     emit(res)
+
+    def elbo(state, gen):
+        return state, float(problem.sample(K_AR1, gen).elbo_nograd())
+    _profile_step("ar1_large_k", elbo, None, gen, ms)
     return launches
 
 

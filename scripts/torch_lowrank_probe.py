@@ -78,8 +78,12 @@ def cuda_ms(fn, reps=7, inner=3):
 
 
 def build(name, src, extra):
+    """nvcc of src (a copy of it included: the kernels' headers are found
+    by -I)."""
     from alan_tpu_torch import _build
-    b = _build._Build(name, [_build._nvcc()], src, _build.NVCC_FLAGS + extra)
+    csrc = os.path.join(REPO, "alan_tpu_torch", "csrc")
+    b = _build._Build(name, [_build._nvcc()], src, _build.NVCC_FLAGS + ["-I", csrc] + extra,
+                      _build.HEADERS)
     return b.wait(), b.log
 
 

@@ -26,8 +26,10 @@ and no JAX it runs without the suite's conftest:
   of the launch plan; one launch against ``reference_segment``; the
   kernels' shared memory against the planner's; their logarithm against
   ``logf``; and their refusal of K out of range;
-* the fused log-matmul kernel against ``reference_logmmexp``: (2, 1000,
-  1000), a ragged shape and -inf rows, rtol/atol 1e-5.
+* the fused log-matmul kernel against ``reference_logmmexp``: both levels
+  of the AR(1) chain at K = 1000 ((2, 1000, 1000) and batch 1), a ragged
+  shape, -inf rows and sums of products in [e^-80, e^-78], rtol/atol 1e-5;
+  its pre-pass bitwise against ``reference_prepass``.
 """
 import numpy as np
 import pytest
@@ -304,17 +306,34 @@ def test_smallk_kernels_refuse_k_out_of_range(card):
 
 # ---- the fused log-matmul kernel ----------------------------------------------
 
-@pytest.mark.parametrize("shape,inf", [((2, 1000, 1000, 1000), False),
-                                       ((3, 130, 257, 77), False),
-                                       ((2, 70, 300, 65), True)])
-def test_fused_logmmexp_matches_plain_version(card, shape, inf):
+def _small_sums(shape, rng):
+    """Row maxima of A at k = 0, column maxima of B at k = 1, both near 37,
+    every product of two exponentials in [e^-80, e^-78]: above FLT_MIN,
+    with + FLT_MIN counting in the log, and out near 0."""
+    nb, M, K, N = shape
+    c, d = rng.uniform(36, 38, (nb, M, 1)), rng.uniform(36, 38, (nb, 1, N))
+    A, B = c - rng.uniform(39, 40, (nb, M, K)), d - rng.uniform(39, 40, (nb, K, N))
+    A[:, :, 0], B[:, 1, :] = c[:, :, 0], d[:, 0, :]
+    A[:, :, 1] = c[:, :, 0] - rng.uniform(78, 80, (nb, M))
+    B[:, 0, :] = d[:, 0, :] - rng.uniform(78, 80, (nb, N))
+    return A.astype(np.float32), B.astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,kind", [((2, 1000, 1000, 1000), "randn"),
+                                        ((1, 1000, 1000, 1000), "randn"),
+                                        ((3, 130, 257, 77), "randn"),
+                                        ((2, 70, 300, 65), "inf"),
+                                        ((2, 300, 128, 300), "small_sums")])
+def test_fused_logmmexp_matches_plain_version(card, shape, kind):
     nb, M, K, N = shape
     rng = np.random.default_rng(13)
     A = (rng.standard_normal((nb, M, K)) * 3).astype(np.float32)
     B = (rng.standard_normal((nb, K, N)) * 3).astype(np.float32)
-    if inf:
+    if kind == "inf":
         A[:, ::7] = -np.inf
         B[:, :, 5] = -np.inf
+    if kind == "small_sums":
+        A, B = _small_sums(shape, rng)
     A, B = torch.tensor(A, device=card), torch.tensor(B, device=card)
     launches = tlk.LAUNCHES
     got = tlk.logmmexp_fused(A, B)
@@ -323,3 +342,18 @@ def test_fused_logmmexp_matches_plain_version(card, shape, inf):
     want = tlk.reference_logmmexp(A, B)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 1000, 1000, 1000), (3, 130, 257, 77)])
+def test_fused_prepass_is_its_plain_version(card, shape):
+    nb, M, K, N = shape
+    rng = np.random.default_rng(14)
+    A = torch.tensor((rng.standard_normal((nb, M, K)) * 3).astype(np.float32), device=card)
+    B = torch.tensor((rng.standard_normal((nb, K, N)) * 3).astype(np.float32), device=card)
+    A[:, 1] = -np.inf
+    B[:, :, 2] = -np.inf
+    for bn in tlk.TILE_WIDTHS:
+        got = tlk._prepass(A, B, bn)
+        want = tlk.reference_prepass(A, B, bn)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)

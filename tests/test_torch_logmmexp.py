@@ -12,6 +12,13 @@ Inputs come from numpy seeds; the port runs on the CPU.
   K=2, K=33, extra batch dims, -inf entries): values 1e-5; gradients rtol
   1e-4 / atol 1e-5 against the dense path and 3e-3 / 1e-5 against the lanes
   path, as ``tests/test_ops.py:211``;
+* the fused kernel's pre-pass (``reference_prepass``): maxes, TF32 hi/lo
+  parts whose sum gives ``exp(x - max) * 2**SCALE_BITS`` to 2^-21, B
+  transposed, padding zeroed, -inf rows and columns; the emulation of its
+  product kernel (3xTF32 in fresh sums of ``BK`` k, rounded toward zero
+  like the tensor cores) against ``logmmexp(allow_pallas=False)`` and
+  ``logmmexp_pallas(interpret=True)``: rtol/atol 1e-5; the tile width the
+  host picks;
 * the routing rules and the wrappers' refusals.
 """
 import jax
@@ -67,6 +74,92 @@ def test_fused_gradient_matches_jax():
     (tlm.logmmexp(tA, tB) * _t(W)).sum().backward()
     np.testing.assert_allclose(tA.grad.numpy(), np.asarray(gA), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(tB.grad.numpy(), np.asarray(gB), rtol=1e-4, atol=1e-5)
+
+
+# ---- the fused kernel's pre-pass and product, in plain torch ---------------------
+
+def _fused_input(shape, seed):
+    """Operands with a -inf row of A and a -inf column of B."""
+    b, M, K, N = shape
+    rng = np.random.default_rng(seed)
+    A = (rng.standard_normal((b, M, K)) * 3).astype(np.float32)
+    B = (rng.standard_normal((b, K, N)) * 3).astype(np.float32)
+    A[0, 1] = -np.inf
+    B[-1, :, 2] = -np.inf
+    return A, B
+
+
+@pytest.mark.parametrize("bn", tlk.TILE_WIDTHS)
+@pytest.mark.parametrize("shape", [(2, 70, 257, 65), (1, 130, 64, 129)])
+def test_prepass_layout_and_exactness(shape, bn):
+    b, M, K, N = shape
+    A, B = _fused_input(shape, 11)
+    a_max, b_max, split = tlk.reference_prepass(_t(A), _t(B), bn)
+    assert split.numel() == tlk.scratch_floats(b, M, K, N, bn)
+    ah, al, bh, bl = tlk.split_parts(split, b, M, K, N, bn)
+    mp, np_, kp = -(-M // tlk.BM) * tlk.BM, -(-N // bn) * bn, -(-K // tlk.BK) * tlk.BK
+    assert ah.shape == al.shape == (b, mp, kp) and bh.shape == bl.shape == (b, np_, kp)
+    for part in (ah, al, bh, bl):                 # TF32: the low 13 bits are 0
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    for part in (ah, al):                         # padding: rows past M, k past K
+        assert not part[:, M:].any() and not part[:, :, K:].any()
+    for part in (bh, bl):
+        assert not part[:, N:].any() and not part[:, :, K:].any()
+    a_want = np.where(np.isfinite(A.max(-1)), A.max(-1), 0)
+    b_want = np.where(np.isfinite(B.max(-2)), B.max(-2), 0)
+    np.testing.assert_array_equal(a_max.numpy(), a_want)
+    np.testing.assert_array_equal(b_max.numpy(), b_want)
+    assert a_max[0, 1] == 0 and b_max[-1, 2] == 0
+    scale = 2.0 ** tlk.SCALE_BITS
+    ea = np.exp(A - a_want[..., None].astype(np.float32)).astype(np.float64)
+    eb = np.exp(B - b_want[:, None, :].astype(np.float32)).astype(np.float64)
+    eb = eb.transpose(0, 2, 1)
+    for (hi, lo), e, rows in (((ah, al), ea, M), ((bh, bl), eb, N)):
+        got = (hi.double() + lo.double())[:, :rows, :K].numpy() / scale
+        np.testing.assert_allclose(got, e, rtol=2.0 ** -21, atol=0)
+    assert not ah[0, 1].any() and not bh[-1, 2].any()   # the -inf row and column
+
+
+@pytest.mark.parametrize("shape", [(1, 64, 1000, 64), (2, 70, 257, 65)])
+def test_emulated_product_matches_jax(shape):
+    """The product kernel's arithmetic at its stage of BK = 32 k, from the
+    pre-pass's plain version, at both tile widths."""
+    b, M, K, N = shape
+    A, B = _fused_input(shape, 12)
+    want = np.asarray(j_logmmexp(jnp.asarray(A), jnp.asarray(B), allow_pallas=False))
+    fused = np.asarray(j_logmmexp_pallas(jnp.asarray(A), jnp.asarray(B), interpret=True))
+    for bn in tlk.TILE_WIDTHS:
+        pre = tlk.reference_prepass(_t(A), _t(B), bn)
+        got = tlk.emulate_product(*pre, b, M, K, N, bn).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(got, fused, rtol=1e-5, atol=1e-5)
+
+
+def test_fresh_stage_sums_keep_f32_grade():
+    """Why each stage of BK k starts a fresh tensor-core sum: with the sums
+    rounded toward zero, one sum over all of K = 1000 drifts past 1e-5 from
+    f64, fresh sums of 32 stay within the plain version's distance."""
+    A, B = (_t(x) for x in _fused_input((1, 64, 1000, 64), 13))
+    a_max, b_max = tlk._shifts(A.double(), B.double())
+    exact = torch.log(torch.exp(A.double() - a_max) @ torch.exp(B.double() - b_max)
+                      + tlk._TINY) + a_max + b_max
+    finite = torch.isfinite(exact)
+    plain = (tlk.reference_logmmexp(A, B).double() - exact)[finite].abs().max()
+    pre = tlk.reference_prepass(A, B, 64)
+    err = {chunk: (tlk.emulate_product(*pre, 1, 64, 1000, 64, 64, chunk).double()
+                   - exact)[finite].abs().max() for chunk in (tlk.BK, 1024)}
+    assert err[tlk.BK] <= 1.5 * plain and err[tlk.BK] < 1e-5 < err[1024]
+
+
+@pytest.mark.parametrize("nb,M,N,sms,want", [
+    (2, 1000, 1000, 132, 128),   # the AR(1) model's first level: 128 blocks
+    (1, 1000, 1000, 132, 64),    # its top level: 128 blocks of 128 x 64
+    (4, 128, 128, 132, 64),      # K = 128 with a batch
+    (8, 1000, 1000, 132, 128),   # several waves either way
+    (1, 100, 100, 132, 64),
+])
+def test_tile_width_by_shape(nb, M, N, sms, want):
+    assert tlk.tile_n(nb, M, N, sms) == want
 
 
 # ---- chain_logmmexp -------------------------------------------------------------
