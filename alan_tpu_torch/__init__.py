@@ -2,13 +2,15 @@
 
 The package mirrors ``alan_tpu``'s module layout and names.  It imports
 ``torch`` and never JAX or ``alan_tpu``.  Entry points (``BoundPlate``,
-``Problem``, ``train.qem``) take a ``device``: ``"cuda"`` by default, which
-raises without a card; only an explicit ``device="cpu"`` runs on the host.
-The hand-written kernels (``csrc/``) and the native planner build at first
-use into ``alan_tpu_torch/_native/``.
+``Problem``, ``train.qem``, ``train.vi``, ``train.rws``, ``train.fit``) take
+a ``device``: ``"cuda"`` by default, which raises without a card; only an
+explicit ``device="cpu"`` runs on the host.  The hand-written kernels
+(``csrc/``) and the native planner build at first use into
+``alan_tpu_torch/_native/``.
 
-The port carries the fused QEM step of the MovieLens models and of the
-covid timeseries model, and the ELBO of the AR(1) timeseries model.
+The port trains by QEM, VI and RWS (``OptParam``s and ``extra_opt_params``
+under ``torch.optim.Adam``) and carries the MovieLens models, the covid
+timeseries model and the ELBO of the AR(1) timeseries model.
 """
 
 from .dims import DT, dt

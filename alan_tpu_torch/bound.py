@@ -12,7 +12,7 @@ import torch
 
 from .dims import DT, as_dt, dims_of, dt
 from .ir.plate import Plate, tensordict2tree, flatten_tree
-from .ir.param import QEMParam
+from .ir.param import QEMParam, identity
 from .ir.checking import check_timeseries
 from .sampler import PermutationSampler
 from .moments import moments_func2name
@@ -42,8 +42,11 @@ def expand_named(x, names, all_platesizes: dict, device) -> DT:
 
 
 class BoundPlate:
+    """``extra_opt_params``: named tensors learned by gradient (VI, RWS)
+    beside the ``OptParam``s of the program, used by name in it."""
+
     def __init__(self, plate: Plate, all_platesizes: dict | None,
-                 inputs=None, device="cuda"):
+                 inputs=None, extra_opt_params=None, device="cuda"):
         assert isinstance(plate, Plate)
         self.device = resolve_device(device)
         self.plate = plate
@@ -58,10 +61,15 @@ class BoundPlate:
 
         inputs = {k: as_dt(v) for k, v in (inputs or {}).items()}
         inputs = {k: DT(v.data.to(self.device), v.dims) for k, v in inputs.items()}
-        for k, v in inputs.items():
+        extra_opt_params = {
+            k: DT(as_dt(v).data.to(device=self.device, dtype=torch.float32),
+                  as_dt(v).dims)
+            for k, v in (extra_opt_params or {}).items()}
+        for k, v in {**inputs, **extra_opt_params}.items():
             for name in dims_of(v):
                 if name not in all_platesizes:
-                    raise Exception(f"Dim {name} on input {k} not in all_platesizes")
+                    raise Exception(
+                        f"Dim {name} on input/extra_opt_param {k} not in all_platesizes")
                 if v.dim_size(name) != all_platesizes[name]:
                     raise Exception(
                         f"Size mismatch for {k} along {name}: all_platesizes says "
@@ -69,20 +77,26 @@ class BoundPlate:
 
         check_timeseries(plate)
 
-        # inputs must be used at plate depths consistent with their dims
+        # inputs and extra opt params must be used at plate depths
+        # consistent with their dims
         groupvarname2platenames = plate.groupvarname2platenames()
         varname2groupvarname_dist = plate.varname2groupvarname_dist()
+        ie = {**inputs, **extra_opt_params}
         for varname, (groupvarname, dist) in varname2groupvarname_dist.items():
             for argname in dist.all_args:
-                if argname in inputs:
+                if argname in ie:
                     dist_platenames = groupvarname2platenames[groupvarname]
-                    arg_platenames = dims_of(inputs[argname])
+                    arg_platenames = dims_of(ie[argname])
                     if not set(arg_platenames).issubset(dist_platenames):
                         raise Exception(
                             f"{argname} is used on {varname} (plates {dist_platenames}) "
                             f"but has plates {list(arg_platenames)}")
 
-        # ---- parameter state (QEM; OptParams are not ported yet) ----------
+        # ---- parameter state: opt params (each with its transformation),
+        # QEM conventional params and QEM moment averages -----------------
+        opt_params = dict(extra_opt_params)
+        self.opt_paramname2trans = {p: identity for p in opt_params}
+
         self.qem_list_varname = []
         self.qem_list_conversion = []
         self.qem_list_rmkeys = []
@@ -93,11 +107,16 @@ class BoundPlate:
         self.qem_rmkey2meanname = {}
 
         for varname, (groupvarname, dist) in varname2groupvarname_dist.items():
-            if dist.opt_dist:
-                raise NotImplementedError("OptParam is not ported to alan_tpu_torch yet")
-            if not dist.qem_dist:
-                continue
             platenames = groupvarname2platenames[groupvarname]
+            if not dist.qem_dist:
+                for paramname, (distargname, param) in dist.opt_qem_params.items():
+                    if paramname in opt_params:
+                        raise Exception(
+                            f"OptParam name clash: {paramname} already exists")
+                    opt_params[paramname] = expand_named(
+                        param.init, platenames, all_platesizes, self.device)
+                    self.opt_paramname2trans[paramname] = param.trans
+                continue
             self.qem_list_varname.append(varname)
             conversion = conversion_dict[dist.family]
             self.qem_list_conversion.append(conversion)
@@ -122,13 +141,15 @@ class BoundPlate:
                 qem_means[meanname] = as_dt(init_mean)
 
         self._inputs = inputs
-        self._state = {"opt": {}, "qem_params": qem_params, "qem_means": qem_means}
+        self._state = {"opt": opt_params, "qem_params": qem_params,
+                       "qem_means": qem_means}
 
         input_param_names = list(self.inputs_params_flat_named().keys())
         for name in input_param_names:
             check_name(name)
         if len(input_param_names) != len(set(input_param_names)):
-            raise Exception("BoundPlate has overlapping names in inputs/qem_params")
+            raise Exception(
+                "BoundPlate has overlapping names in inputs/opt_params/qem_params")
         overlap = set(input_param_names).intersection(plate.all_prog_names())
         if overlap:
             raise Exception(f"Program names overlap with input/param names: {overlap}")
@@ -146,12 +167,19 @@ class BoundPlate:
     def inputs(self):
         return dict(self._inputs)
 
+    def opt_params(self, state=None):
+        """The opt params with their transformations applied (``exp`` of a
+        log-scale, say): the values the program reads."""
+        state = state if state is not None else self._state
+        return {k: DT(self.opt_paramname2trans[k](v.data), v.dims)
+                for k, v in state["opt"].items()}
+
     def qem_params(self, state=None):
         state = state if state is not None else self._state
         return dict(state["qem_params"])
 
     def inputs_params_flat_named(self, state=None):
-        return {**self.inputs(), **self.qem_params(state)}
+        return {**self.inputs(), **self.opt_params(state), **self.qem_params(state)}
 
     def inputs_params(self, state=None):
         return tensordict2tree(self.plate, self.inputs_params_flat_named(state))
@@ -192,7 +220,11 @@ class BoundPlate:
 
     # ---- sampling --------------------------------------------------------
     def _sample(self, K: int, reparam: bool, sampler, all_platedims: dict,
-                generator, state=None):
+                generator, state=None, noise=None):
+        """K particles per latent.  ``noise`` (a tree shaped like the draw)
+        replaces the generator's standard noise of reparameterised draws;
+        the generator still draws the parents' permutations (it may be None
+        where Q permutes none)."""
         assert isinstance(K, int)
         groupvarname2Kdim = self.plate.groupvarname2Kdim(K)
         dim_sizes = {**all_platedims, **{kd: K for kd in groupvarname2Kdim.values()}}
@@ -207,6 +239,7 @@ class BoundPlate:
             reparam=reparam,
             keygen=KeyGen(generator),
             dim_sizes=dim_sizes,
+            noise=noise,
         )
         return sample, groupvarname2Kdim
 

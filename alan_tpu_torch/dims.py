@@ -278,7 +278,8 @@ def matmul(a, b) -> DT:
     a, b = as_dt(a), as_dt(b)
     if a.pos_ndim == 1 and b.pos_ndim == 1:
         (x, y), union = align(a, b)
-        return DT(torch.einsum("...f,...f->...", x, y), union)
+        dtype = torch.promote_types(x.dtype, y.dtype)     # as jnp.einsum
+        return DT(torch.einsum("...f,...f->...", x.to(dtype), y.to(dtype)), union)
     return pos_op(torch.matmul, a, b)
 
 

@@ -78,9 +78,11 @@ class DimDist:
         return out
 
     def sample(self, generator, reparam: bool, sample_dims,
-               dim_sizes: dict[str, int], sample_shape=()) -> DT:
+               dim_sizes: dict[str, int], sample_shape=(), noise=None) -> DT:
         """Draw with all named dims in ``sample_dims`` on the result;
-        ``dim_sizes`` gives sizes for dims not already on the parameters."""
+        ``dim_sizes`` gives sizes for dims not already on the parameters.
+        ``noise``, a DT with the draw's dims and shape, replaces the
+        generator's standard noise of a reparameterised draw."""
         sample_dims = list(sample_dims)
         if len(set(sample_dims)) != len(sample_dims):
             raise ValueError(f"duplicate sample_dims {sample_dims}")
@@ -97,9 +99,23 @@ class DimDist:
         full = (tuple(sizes[d] for d in extra)
                 + tuple(sizes[d] for d in self.arg_dims)
                 + sample_shape + tuple(self.batch_shape) + tuple(self.event_shape))
-        params = self._prepared_params(len(sample_shape), generator.device)
-        out = DT(self.family.sample(generator, full, params),
-                 tuple(extra) + self.arg_dims)
+        out_dims = tuple(extra) + self.arg_dims
+        if noise is None:
+            params = self._prepared_params(len(sample_shape), generator.device)
+            data = self.family.sample(generator, full, params)
+        else:
+            if not self.family.has_rsample:
+                raise ValueError(f"{self.family.name} has no reparameterised draw "
+                                 f"to take noise")
+            eps = as_dt(noise)
+            if set(eps.dims) != set(out_dims):
+                raise ValueError(f"noise dims {eps.dims}, the draw's {out_dims}")
+            eps = eps.with_dims_front(list(out_dims)).data
+            if tuple(eps.shape) != full:
+                raise ValueError(f"noise shape {tuple(eps.shape)}, the draw's {full}")
+            params = self._prepared_params(len(sample_shape), eps.device)
+            data = self.family.from_noise(eps, params)
+        out = DT(data, out_dims)
         if not reparam:
             out = DT(out.data.detach(), out.dims)
         return out

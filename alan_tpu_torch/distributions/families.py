@@ -10,6 +10,9 @@ Every family declares:
   - ``support``: a token that P/Q support checking compares;
   - ``sample(generator, shape, params)``: a draw of the full given shape on
     the generator's device;
+  - ``from_noise(eps, params)`` (families with a reparameterised draw): the
+    draw that the standard noise ``eps`` gives, differentiable in the
+    parameters;
   - ``log_prob(x, params)``: log-density with event dims reduced.
 """
 from __future__ import annotations
@@ -59,6 +62,10 @@ class Family:
         raise NotImplementedError(cls.name)
 
     @classmethod
+    def from_noise(cls, eps, params):
+        raise NotImplementedError(f"{cls.name} has no reparameterised draw")
+
+    @classmethod
     def log_prob(cls, x, params):
         raise NotImplementedError(cls.name)
 
@@ -72,6 +79,10 @@ class Normal(Family):
     @classmethod
     def sample(cls, generator, shape, p):
         eps = torch.randn(shape, generator=generator, device=generator.device)
+        return cls.from_noise(eps, p)
+
+    @classmethod
+    def from_noise(cls, eps, p):
         return p["loc"] + p["scale"] * eps
 
     @classmethod

@@ -133,12 +133,13 @@ class Dist:
         return DimDist(self.family, **self.paramname2val(scope))
 
     def sample(self, scope, generator, reparam, active_platedims, K_dim,
-               dim_sizes) -> DT:
+               dim_sizes, noise=None) -> DT:
         return self.tdd(scope).sample(
             generator, reparam,
             sample_dims=[*active_platedims, K_dim],
             dim_sizes=dim_sizes,
             sample_shape=self.sample_shape,
+            noise=noise,
         )
 
     def log_prob(self, sample, scope):
@@ -146,8 +147,9 @@ class Dist:
 
 
 def sample_gdt(prog: dict, scope: dict, keygen, active_platedims, K_dim,
-               groupvarname2Kdim, dim_sizes, sampler, reparam) -> dict:
-    """Sample a group/dist sharing one K-dim."""
+               groupvarname2Kdim, dim_sizes, sampler, reparam, noise=None) -> dict:
+    """Sample a group/dist sharing one K-dim; ``noise`` maps a variable
+    name to the standard noise of its reparameterised draw."""
     assert not datagroup(prog)
 
     set_all_args = set(a for dist in prog.values() for a in dist.all_args)
@@ -162,8 +164,14 @@ def sample_gdt(prog: dict, scope: dict, keygen, active_platedims, K_dim,
 
     result = {}
     for name, dist in prog.items():
-        s = dist.sample(scope, keygen(), reparam, active_platedims, K_dim,
-                        dim_sizes)
+        kw = {}
+        if noise is not None:
+            if not isinstance(dist, Dist):
+                raise NotImplementedError(
+                    f"{name}: only a distribution's draw takes injected noise")
+            kw["noise"] = noise[name]
+        s = dist.sample(scope, None if noise is not None else keygen(), reparam,
+                        active_platedims, K_dim, dim_sizes, **kw)
         scope[name] = s
         result[name] = s
     return result

@@ -60,7 +60,10 @@ class Plate:
     # -- Q sampling ---------------------------------------------------------
     def sample(self, name: Optional[str], scope: dict, inputs_params: dict,
                active_platedims: list, all_platedims: dict, groupvarname2Kdim: dict,
-               sampler, reparam: bool, keygen, dim_sizes: dict):
+               sampler, reparam: bool, keygen, dim_sizes: dict, noise=None):
+        """One draw of every latent; ``noise``, a tree shaped like the draw,
+        gives the standard noise of each reparameterised draw instead of
+        the generator."""
         if name is not None:
             active_platedims = [*active_platedims, name]
 
@@ -80,6 +83,7 @@ class Plate:
                         dim_sizes=dim_sizes,
                         sampler=sampler,
                         reparam=reparam,
+                        noise=noise,
                     )
                     for k, v in childsample.items():
                         sample[k] = v
@@ -97,6 +101,7 @@ class Plate:
                     reparam=reparam,
                     keygen=keygen,
                     dim_sizes=dim_sizes,
+                    noise=None if noise is None else noise[childname],
                 )
                 sample[childname] = platesample
                 scope[childname] = platesample

@@ -23,7 +23,6 @@ from .dist import _DistCall
 
 class Timeseries:
     qem_dist = False
-    opt_dist = False
 
     def __init__(self, init, trans):
         if not isinstance(init, str):
@@ -40,6 +39,10 @@ class Timeseries:
         assert not self.trans.qem_dist
         # includes own-name/prev refs; stripped by sample_gdt
         self.all_args = [init, *self.trans.all_args]
+
+    @property
+    def opt_qem_params(self):
+        return self.trans.opt_qem_params
 
     def to(self, device):
         self.trans.to(device)

@@ -9,9 +9,12 @@ Fake data comes from a numpy seed (:func:`fake_data`) by the recipe of
 recursion, and NegativeBinomial observations.  The same arrays can feed
 this package and ``alan_tpu``.
 
-With a QEM Q (``generate_problem``) the chain operator of ``log_infected``
-is ``[nRs, K_npis, T, K_a, K_log_infected]``: nRs * K chains of T = 109
-operators of K x K, which the small-K chain kernel contracts.
+Q is a factorised Normal whose parameters are opt params, a location and a
+log-scale (``Q_param_type="opt"``, the default, as ``alan_tpu``'s: VI and
+RWS), or QEM parameters (``"qem"``).  Either way the chain operator of
+``log_infected`` is ``[nRs, K_npis, T, K_a, K_log_infected]``: nRs * K
+chains of T = 109 operators of K x K, which the small-K chain kernel
+contracts.
 """
 from __future__ import annotations
 
@@ -22,8 +25,8 @@ import torch
 
 from ..bound import BoundPlate
 from ..convert import dt_from_numpy
-from ..ir import (Data, Group, NegativeBinomial, Normal, Plate, QEMParam,
-                  Timeseries)
+from ..ir import (Data, Group, NegativeBinomial, Normal, OptParam, Plate,
+                  QEMParam, Timeseries)
 from ..problem import Problem
 
 nRs = 92
@@ -130,38 +133,45 @@ def get_P(platesizes, covariates, device="cuda"):
     return BoundPlate(P, platesizes, inputs=covariates, device=device)
 
 
-def generate_problem(platesizes, data, covariates, Q_param_type="qem",
-                     device="cuda"):
-    """The covid problem with a factorised Normal Q of QEM parameters (the
-    JAX benchmark's ``covid_full_qem_K30`` configuration)."""
-    if Q_param_type != "qem":
+def generate_problem(platesizes, data, covariates, Q_param_type="opt",
+                     corr_Q=False, device="cuda"):
+    """The covid problem with a factorised Normal Q (``Q_param_type``
+    ``"opt"`` or ``"qem"``; ``examples/models/covid.py:121-170``).  The
+    JAX benchmark's ``covid_full_qem_K30`` is ``"qem"``.  ``corr_Q`` (a
+    MultivariateNormal proposal for CM_alpha) is not ported yet."""
+    if corr_Q:
         raise NotImplementedError(
-            "only Q_param_type='qem' is ported to alan_tpu_torch (OptParam waits)")
+            "corr_Q needs a MultivariateNormal, not ported to alan_tpu_torch "
+            "yet (ROADMAP queue 1 item 4)")
+    if Q_param_type not in ("opt", "qem"):
+        raise ValueError(f"Q_param_type must be 'opt' or 'qem', not {Q_param_type!r}")
     P = get_P(platesizes, covariates, device)
 
-    def qem(loc_init=0.0, scale_init=1.0, shape=None):
-        if shape:
-            return Normal(QEMParam(torch.full(shape, loc_init)),
-                          QEMParam(torch.full(shape, scale_init)))
-        return Normal(QEMParam(loc_init), QEMParam(scale_init))
+    def q(loc_init=0.0, scale_init=1.0, shape=None):
+        full = (lambda v: torch.full(shape, float(v))) if shape else float
+        if Q_param_type == "opt":
+            return Normal(OptParam(full(loc_init)),
+                          OptParam(full(math.log(scale_init)),
+                                   transformation=torch.exp))
+        return Normal(QEMParam(full(loc_init)), QEMParam(full(scale_init)))
 
     Q = Plate(
         npis=Group(
-            CM_alpha=qem(shape=(nCMs - 2,)),
-            Wearing_alpha=qem(),
-            Mobility_alpha=qem(),
-            RegionR=qem(loc_init=1.0),
-            InitialSize_log_mean=qem(loc_init=math.log(1000)),
-            log_infected_noise_mean=qem(loc_init=math.log(0.01)),
+            CM_alpha=q(shape=(nCMs - 2,)),
+            Wearing_alpha=q(),
+            Mobility_alpha=q(),
+            RegionR=q(loc_init=1.0),
+            InitialSize_log_mean=q(loc_init=math.log(1000)),
+            log_infected_noise_mean=q(loc_init=math.log(0.01)),
         ),
         nRs=Plate(
             a=Group(
-                InitialSize_log=qem(loc_init=math.log(1000)),
-                log_infected_noise=qem(loc_init=math.log(0.01)),
-                psi=qem(),
+                InitialSize_log=q(loc_init=math.log(1000)),
+                log_infected_noise=q(loc_init=math.log(0.01)),
+                psi=q(),
             ),
             nDs=Plate(
-                log_infected=qem(loc_init=math.log(1000)),
+                log_infected=q(loc_init=math.log(1000)),
                 obs=Data(),
             ),
         ),

@@ -2,6 +2,10 @@
 and of ``_grouped_movielens`` in ``bench_scaling.py:70-93``): M=300 users x
 N=5 films, d_z=18 latent factors, Bernoulli observations with logits z . x.
 
+Q is a factorised Normal whose parameters are QEM parameters
+(``Q_param_type="qem"``) or opt params, a location and a log-scale
+(``"opt"``, ``examples/models/movielens.py:79-90``), for VI and RWS.
+
 Fake data comes from a numpy seed (:func:`fake_data`), so the same arrays
 can feed this package and ``alan_tpu``: covariates ``x ~ N(0, 1)``, latents
 from the prior, ``obs ~ Bernoulli(sigmoid(z . x))``.
@@ -13,7 +17,7 @@ import torch
 
 from ..bound import BoundPlate
 from ..convert import dt_from_numpy
-from ..ir import Bernoulli, Data, Group, Normal, Plate, QEMParam
+from ..ir import Bernoulli, Data, Group, Normal, OptParam, Plate, QEMParam
 from ..problem import Problem
 
 d_z = 18
@@ -56,30 +60,40 @@ def get_P(platesizes, covariates, device="cuda"):
     return BoundPlate(P, platesizes, inputs=covariates, device=device)
 
 
-def _qem_normal():
+def _q_normal(Q_param_type):
+    if Q_param_type == "opt":
+        return Normal(OptParam(torch.zeros(d_z)),
+                      OptParam(torch.zeros(d_z), transformation=torch.exp))
+    if Q_param_type != "qem":
+        raise ValueError(f"Q_param_type must be 'qem' or 'opt', not {Q_param_type!r}")
     return Normal(QEMParam(torch.zeros(d_z)), QEMParam(torch.ones(d_z)))
 
 
-def generate_problem(platesizes, data, covariates, device="cuda"):
-    """MovieLens with a QEM Q: every latent has its own K-dim."""
+def generate_problem(platesizes, data, covariates, Q_param_type="qem",
+                     device="cuda"):
+    """MovieLens whose every latent has its own K-dim."""
     P = get_P(platesizes, covariates, device)
     Q = Plate(
-        mu_z=_qem_normal(),
-        psi_z=_qem_normal(),
-        plate_1=Plate(z=_qem_normal(), plate_2=Plate(obs=Data())),
+        mu_z=_q_normal(Q_param_type),
+        psi_z=_q_normal(Q_param_type),
+        plate_1=Plate(z=_q_normal(Q_param_type), plate_2=Plate(obs=Data())),
     )
     Q = BoundPlate(Q, platesizes, inputs=covariates, device=device)
     return Problem(P, Q, data, device=device)
 
 
-def grouped_problem(platesizes, data, covariates, device="cuda"):
+def grouped_problem(platesizes, data, covariates, Q_param_type="qem",
+                    device="cuda"):
     """MovieLens with mu_z and psi_z grouped onto one K-dim: the z factor
     shrinks from K^3 x plate to K^2 x plate, which is what makes K=1000
-    feasible, and routes z's cross-K factor through the lazy contraction."""
+    feasible, and routes z's cross-K factor through the lazy contraction.
+    With opt params in Q (for VI) both sides of that factor depend on them,
+    z's draw on one side and mu_z's and psi_z's on the other, so a VI step
+    takes the lazy contraction's gradients with respect to both operands."""
     P = get_P(platesizes, covariates, device)
     Q = Plate(
-        g=Group(mu_z=_qem_normal(), psi_z=_qem_normal()),
-        plate_1=Plate(z=_qem_normal(), plate_2=Plate(obs=Data())),
+        g=Group(mu_z=_q_normal(Q_param_type), psi_z=_q_normal(Q_param_type)),
+        plate_1=Plate(z=_q_normal(Q_param_type), plate_2=Plate(obs=Data())),
     )
     Q = BoundPlate(Q, platesizes, inputs=covariates, device=device)
     return Problem(P, Q, data, device=device)

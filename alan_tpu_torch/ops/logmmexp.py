@@ -13,8 +13,10 @@ next).  Routes, as ``alan_tpu`` takes them (``logmmexp.py:15-101``):
 * anything else takes the dense torch route: max-shifted exponentials and
   one ``torch.matmul``.
 
-``ALAN_TPU_NO_SMALLK_CHAIN=1`` turns the small-K route off and
-``ALAN_TPU_SMALLK_CHAIN=1`` forces it, as in ``alan_tpu``.  The TPU's own
+``ALAN_TPU_NO_SMALLK_CHAIN=1`` turns the small-K route off,
+``ALAN_TPU_SMALLK_CHAIN=1`` forces it and ``ALAN_TPU_SMALLK_CHAIN_MAX_K``
+moves its largest K (100), as in ``alan_tpu``; each is read at every call.
+The TPU's own
 limits on these routes (the VMEM footprint model, a batch that fills the
 128 lanes) have no counterpart on the card: each kernel raises on what it
 cannot take instead.  CPU tensors take the same routes, and each kernel
@@ -29,8 +31,10 @@ import torch
 from .logmmexp_kernel import logmmexp_fused, reference_logmmexp
 from .smallk_kernel import chain_logmmexp_smallk
 
-#: largest K of a chain routed to the small-K kernel (alan_tpu's default)
-SMALLK_CHAIN_MAX_K = 100
+
+def _smallk_max_k() -> int:
+    """Largest K of a chain routed to the small-K kernel."""
+    return int(os.environ.get("ALAN_TPU_SMALLK_CHAIN_MAX_K", "100"))
 
 
 def logmmexp(A, B, allow_kernel: bool = True):
@@ -48,7 +52,7 @@ def _use_smallk(ms) -> bool:
         return False
     if os.environ.get("ALAN_TPU_SMALLK_CHAIN"):
         return True
-    return (ms.dtype == torch.float32 and 2 <= ms.shape[-1] <= SMALLK_CHAIN_MAX_K
+    return (ms.dtype == torch.float32 and 2 <= ms.shape[-1] <= _smallk_max_k()
             and ms.shape[-3] >= 2)
 
 

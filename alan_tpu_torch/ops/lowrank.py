@@ -21,12 +21,17 @@ lazy until the K-contraction consumes it, where ``LowRankDT.contract`` hands
 it to ``ops/lowrank_kernel.lowrank_logsumexp``: the hand-written CUDA kernel
 for CUDA tensors, the plain version for CPU tensors.
 
-Routing thresholds are ``alan_tpu``'s (2^28 cross-product work, 2^26 cross
-elements for the lazy form, 2^26 operand elements), so both packages route
-alike.  They were calibrated on a TPU and are still to be measured on the
-card.  ``ALAN_TPU_LOWRANK_MIN`` lowers the work threshold,
-``ALAN_TPU_LAZY_LOWRANK=1`` forces the lazy form and
-``ALAN_TPU_NO_LAZY_LOWRANK=1`` turns it off, as in ``alan_tpu``.
+Routing reads ``alan_tpu``'s knobs with its defaults, at each call, so both
+packages route alike under one environment: ``ALAN_TPU_LOWRANK_MIN`` (the
+cross-product work the factored path starts at, 2^28),
+``ALAN_TPU_NO_LOWRANK_LOGPROB=1`` (no factored path at all),
+``ALAN_TPU_LOWRANK_OPERAND_CAP`` (largest factored operand, 2^26 elements),
+``ALAN_TPU_LAZY_LOWRANK_MIN`` (cross elements the lazy form starts at,
+2^26), ``ALAN_TPU_LAZY_LOWRANK=1`` (lazy form forced) and
+``ALAN_TPU_NO_LAZY_LOWRANK=1`` (lazy form off).  The defaults were
+calibrated on a TPU and are still to be measured on the card.
+``ALAN_TPU_LAZY_LOWRANK_INTERPRET`` (run the Pallas kernel in interpret
+mode) has no counterpart here: a CPU tensor always takes the plain version.
 """
 from __future__ import annotations
 
@@ -43,29 +48,35 @@ _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 #: families with a factored form in this package
 LOWRANK_FAMILIES = ("Normal",)
 
-#: cross-product elements the lazy form starts at (alan_tpu's 2^26)
-_LAZY_MIN_CROSS = 1 << 26
-#: cap on either factored operand, in elements (alan_tpu's 2^26)
-_OPERAND_CAP = 1 << 26
-
 #: calls of ``LowRankDT.contract`` that reached the fused contraction
 CONTRACT_CALLS = 0
 
 
 def _threshold() -> int:
+    """Cross-product work (elements x features) the factored path starts at."""
     return int(os.environ.get("ALAN_TPU_LOWRANK_MIN", str(1 << 28)))
+
+
+def _lazy_min_cross() -> int:
+    """Cross-product elements the lazy form starts at."""
+    return int(os.environ.get("ALAN_TPU_LAZY_LOWRANK_MIN", str(1 << 26)))
+
+
+def _operand_cap() -> int:
+    """Largest factored operand, in elements."""
+    return int(os.environ.get("ALAN_TPU_LOWRANK_OPERAND_CAP", str(1 << 26)))
 
 
 def lowrank_lazy_preferred(x, params) -> bool:
     """Route to the lazy factored form (``LowRankDT`` + the fused
-    contraction) instead of the dense matmul: past 2^26 cross elements, or
-    when forced."""
+    contraction) instead of the dense matmul: from ``_lazy_min_cross()``
+    cross elements on, or when forced."""
     if os.environ.get("ALAN_TPU_NO_LAZY_LOWRANK") == "1":
         return False
     if os.environ.get("ALAN_TPU_LAZY_LOWRANK") == "1":
         return True
     sizes = dimsizes_of(as_dt(x), *[as_dt(v) for v in params.values()])
-    return math.prod(sizes.values()) >= _LAZY_MIN_CROSS
+    return math.prod(sizes.values()) >= _lazy_min_cross()
 
 
 def lowrank_applicable(family_name, x, params, arg_dims) -> bool:
@@ -73,6 +84,8 @@ def lowrank_applicable(family_name, x, params, arg_dims) -> bool:
     disjoint named dims (a genuine cross product) big enough to matter, and
     the factored operands stay bounded."""
     if family_name not in LOWRANK_FAMILIES:
+        return False
+    if os.environ.get("ALAN_TPU_NO_LOWRANK_LOGPROB") == "1":
         return False
     x = as_dt(x)
     p_only = [d for d in arg_dims if d not in x.dims]
@@ -84,7 +97,8 @@ def lowrank_applicable(family_name, x, params, arg_dims) -> bool:
     F = math.prod(torch.broadcast_shapes(x.pos_shape, *[v.pos_shape for v in pvals]))
     u_elems = math.prod(sizes[d] for d in sizes if d not in p_only) * F
     v_elems = math.prod(sizes[d] for d in p_only) * F
-    if u_elems > _OPERAND_CAP or v_elems > _OPERAND_CAP:
+    cap = _operand_cap()
+    if u_elems > cap or v_elems > cap:
         return False
     return math.prod(sizes.values()) * F >= _threshold()
 

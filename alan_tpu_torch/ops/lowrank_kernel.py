@@ -14,9 +14,11 @@ Hopper (``alan_tpu_torch/csrc/lowrank_lse.cu``):
 * the forward kernel replaces ``_fwd_kernel`` (``pallas_lowrank.py:215``);
 * the backward replaces ``_bwd_kernel`` (``pallas_lowrank.py:298``).  It
   recomputes ``gw = g * exp(U.V + D - out)`` and returns ``dD = sum_j gw``,
-  ``dU = sum_j gw V`` and ``dV = sum_{p,i} gw U``, each only when autograd
-  asks for it.  On the QEM path only D carries a gradient (the posterior
-  source terms ride in D), so only dD is computed there.
+  ``dU = sum_j gw V`` and ``dV = sum_{p,i} gw U``, the last two only when
+  autograd asks for them.  On the QEM path only D carries a gradient (the
+  posterior source terms ride in D), so only dD is computed there; a VI
+  step on grouped MovieLens asks for all three (z's draw sits in U, mu_z's
+  and psi_z's in V).
 
 What bounds them on the card: at the main-path shape (S=1, P=300, I=J=1000,
 F=36) the forward is 2*P*I*J*F = 2.2e10 FLOP of score products plus 3e8
@@ -31,8 +33,8 @@ split is one pass before, into a scratch the wrapper allocates; the source
 note in ``lowrank_lse.cu`` has the details.  The backward's scores are
 bitwise the forward's, and its weights are normalised to the forward's
 logsumexp before the f32 rounding of ``out`` (the forward also returns that
-rounding): dD sums the weights of each score tile, and dU and dV, which QEM
-never asks for, multiply the same weights by the streamed rows
+rounding): dD sums the weights of each score tile, and dU and dV, which
+QEM never asks for and VI does, multiply the same weights by the streamed rows
 (FlashAttention-2's P.V) on the CUDA cores.  The kernels take any S, P
 and F (a feature axis too wide for shared memory is taken in chunks); the
 wrapper raises only on sizes that do not fit the C interface's 32-bit ints.
@@ -52,6 +54,12 @@ from .native import INT, PTR, check_status, load, ptr, stream
 #: reaches the card; the plain version on the CPU does not count)
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+#: backward launches by mode: ``MODE_DD`` (dD alone), ``MODE_DU`` (dD and
+#: dU) and ``MODE_DV`` (dV, with its reduce); one backward call launches
+#: ``MODE_DD`` or ``MODE_DU``, and ``MODE_DV`` beside it where dV is asked for
+DD_LAUNCHES = 0
+DU_LAUNCHES = 0
+DV_LAUNCHES = 0
 
 #: largest size the C interface's int arguments carry
 _INT_MAX = 2 ** 31 - 1
@@ -121,7 +129,7 @@ def _launch_fwd(U, V, D):
 
 def _launch_bwd(U, V, D, out, rnd, g, want_dU: bool, want_dV: bool):
     """-> (dU or None, dD, dV or None); out and rnd from :func:`_launch_fwd`."""
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, DD_LAUNCHES, DU_LAUNCHES, DV_LAUNCHES
     S, P, I, J, F = _check_operands(U, V, D)
     for name, t in (("out", out), ("rnd", rnd), ("g", g)):
         if (t.device != U.device or t.dtype != torch.float32
@@ -143,6 +151,12 @@ def _launch_bwd(U, V, D, out, rnd, g, want_dU: bool, want_dV: bool):
                                  ptr(split), S, P, I, J, F, stream(U))
     check_status(rc, "lowrank_lse_bwd")
     BWD_LAUNCHES += 1
+    if want_dU:
+        DU_LAUNCHES += 1
+    else:
+        DD_LAUNCHES += 1
+    if want_dV:
+        DV_LAUNCHES += 1
     return dU, dD, dV
 
 

@@ -47,9 +47,11 @@ class Problem:
     def data(self):
         return tensordict2tree(self.P.plate, dict(self._data))
 
-    def sample(self, K: int, generator, reparam: bool = False,
+    def sample(self, K: int, generator, reparam: bool = True,
                sampler=PermutationSampler) -> Sample:
-        """Draw K particles per latent from Q with ``generator``."""
+        """Draw K particles per latent from Q with ``generator``;
+        reparameterised by default, as ``alan_tpu``'s, so that
+        ``elbo_vi()`` is differentiable in Q's opt params."""
         sample, groupvarname2Kdim = self.Q._sample(K, reparam, sampler,
                                                    self.all_platedims, generator)
         return Sample(problem=self, sample=sample,

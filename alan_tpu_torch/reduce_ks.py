@@ -9,31 +9,53 @@ planned once per program structure by the native planner
 the lazy low-rank factor goes through ``LowRankDT.contract`` (the fused
 kernel on CUDA); a pairwise step with a large contracted dim becomes a
 log-space batched matmul.
+
+The matmul route reads ``alan_tpu``'s knobs with its defaults:
+``ALAN_TPU_NO_MATMUL_CONTRACT``, ``ALAN_TPU_MATMUL_MIN_K``,
+``ALAN_TPU_MATMUL_MIN_MN`` and ``ALAN_TPU_MATVEC_MIN_MK``.  ``alan_tpu``
+reads the first two once, when it is imported; the port reads all four at
+every call, which takes the same routes under a fixed environment and lets
+a test or a cross-check set them for one call.
 """
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
 from .dims import DT, as_dt, dims_of, logsumexp_dims, unify_dims, check_unique_dims
 
 
+def _use_matmul_contract() -> bool:
+    """``ALAN_TPU_NO_MATMUL_CONTRACT=1`` keeps every step on the broadcast
+    route."""
+    return os.environ.get("ALAN_TPU_NO_MATMUL_CONTRACT") != "1"
+
+
 def _matmul_min_k(device: torch.device) -> int:
     """Contracted-dim size above which a pairwise step becomes a log-space
-    matmul.  ``alan_tpu`` keys this on its backend (``reduce_ks.py:41-52``):
-    8 on a TPU, where the matmul unit pays, and never (2^30) on the CPU,
-    where the broadcast path is faster.  The port takes the TPU branch for
-    CUDA tensors and the broadcast branch for CPU tensors, so its CPU runs
-    contract exactly as ``alan_tpu``'s CPU runs do."""
+    matmul: ``ALAN_TPU_MATMUL_MIN_K`` where it is set.  Unset, ``alan_tpu``
+    keys it on its backend (``reduce_ks.py:41-52``): 8 on a TPU, where the
+    matmul unit pays, and never (2^30) on the CPU, where the broadcast path
+    is faster.  The port takes the TPU branch for CUDA tensors and the
+    broadcast branch for CPU tensors, so its CPU runs contract exactly as
+    ``alan_tpu``'s CPU runs do."""
+    env = os.environ.get("ALAN_TPU_MATMUL_MIN_K")
+    if env is not None:
+        return int(env)
     return 8 if device.type == "cuda" else 1 << 30
 
 
-#: minimum size of EACH free side (m, n) for the matmul reformulation
-_MATMUL_MIN_MN = 8
-#: minimum per-batch matrix size m*k for a matvec-shaped step to still
-#: take the matmul route
-_MATVEC_MIN_MK = 65536
+def _matmul_min_mn() -> int:
+    """Minimum size of EACH free side (m, n) for the matmul reformulation."""
+    return int(os.environ.get("ALAN_TPU_MATMUL_MIN_MN", "8"))
+
+
+def _matvec_min_mk() -> int:
+    """Minimum per-batch matrix size m*k for a matvec-shaped step to still
+    take the matmul route."""
+    return int(os.environ.get("ALAN_TPU_MATVEC_MIN_MK", "65536"))
 
 
 def logsumexp_sum(Ks_to_sum, *lps) -> DT:
@@ -53,7 +75,7 @@ def logsumexp_sum(Ks_to_sum, *lps) -> DT:
                 return out
         lps = tuple(lp.materialize() if getattr(lp, "__lazy_dt__", False) else lp
                     for lp in lps)
-    if len(lps) == 2:
+    if len(lps) == 2 and _use_matmul_contract():
         a, b = (as_dt(lp) for lp in lps)
         shared = [k for k in Ks_to_sum if k in a.dims and k in b.dims]
         k_size = math.prod(a.dim_size(k) for k in shared) if shared else 0
@@ -64,8 +86,8 @@ def logsumexp_sum(Ks_to_sum, *lps) -> DT:
                             if d not in a.dims and d not in set_ks] or [1])
         # the matmul pays for a real [m,k]@[k,n] product, or for a matvec
         # whose per-batch matrix m*k is large (alan_tpu reduce_ks.py:121-139)
-        viable = (min(m_size, n_size) >= _MATMUL_MIN_MN
-                  or max(m_size, n_size) * k_size >= _MATVEC_MIN_MK)
+        viable = (min(m_size, n_size) >= _matmul_min_mn()
+                  or max(m_size, n_size) * k_size >= _matvec_min_mk())
         if k_size >= _matmul_min_k(a.data.device) and viable:
             from .ops.contraction import pairwise_logsumexp_contract
             return pairwise_logsumexp_contract(a, b, tuple(Ks_to_sum))

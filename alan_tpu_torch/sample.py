@@ -1,6 +1,15 @@
 """Sample: K particles per latent drawn from Q, and what the logPQ
-contraction gives from them (counterpart of ``alan_tpu/sample.py``; this
-slice ports the ELBO and the moments).
+contraction gives from them (counterpart of ``alan_tpu/sample.py``; the
+port has the ELBO in its three forms, VI, RWS and no-grad, and the
+moments).
+
+``elbo_vi()`` is differentiable through the reparameterised draws, the
+reference's own torch idiom: ``(-sample.elbo_vi()).backward()`` gives the
+VI gradient of every opt param.  ``elbo_rws()`` takes the detached draws,
+so its gradient reaches the opt params through the log-densities alone.
+The computation strategy defaults to ``no_checkpoint`` everywhere:
+``alan_tpu``'s ``checkpoint`` (rematerialisation in the backward pass) is
+not ported yet, and it changes no value.
 
 Posterior moments are gradients of the ELBO with respect to injected
 zero-valued log-factors ``J`` (the source-term trick, ``alan_tpu``'s
@@ -65,6 +74,18 @@ class Sample:
             computation_strategy=computation_strategy)
         assert dims_of(lp) == ()
         return lp.data if isinstance(lp, DT) else lp
+
+    def elbo_vi(self, computation_strategy=no_checkpoint):
+        """The ELBO through the reparameterised draws."""
+        if not self.reparam:
+            raise Exception(
+                "To compute the VI ELBO you must construct a reparameterised "
+                "sample with problem.sample(K, generator, reparam=True)")
+        return self._elbo(self.reparam_sample, None, computation_strategy)
+
+    def elbo_rws(self, computation_strategy=no_checkpoint):
+        """The ELBO of the detached draws."""
+        return self._elbo(self.detached_sample, None, computation_strategy)
 
     def elbo_nograd(self, computation_strategy=no_checkpoint):
         with torch.no_grad():

@@ -104,12 +104,15 @@ class KeyGen:
     program structure and a seeded generator give a fixed set of draws
     (``alan_tpu`` folds a JAX key instead; the two never give equal bits)."""
 
-    def __init__(self, generator: torch.Generator):
-        if not isinstance(generator, torch.Generator):
+    def __init__(self, generator: torch.Generator | None):
+        if generator is not None and not isinstance(generator, torch.Generator):
             raise TypeError(f"KeyGen takes a torch.Generator, not {type(generator)}")
         self.generator = generator
 
     def __call__(self) -> torch.Generator:
+        if self.generator is None:
+            raise ValueError("this draw needs a generator (injected noise "
+                             "replaces the standard noise, not the permutations)")
         return self.generator
 
 

@@ -58,25 +58,57 @@ without its final line:
                 particles with the lazy path on (kernels) and off (the dense
                 materialised cross product): ELBO within 1e-4 relative, the
                 updated Q state within rtol/atol 1e-4;
-5. covid_main_path -- the covid model at full size (92 regions x 109
+5. movielens_k30_main_path -- bench.py's headline (``bench.py:106-120``):
+                ungrouped MovieLens QEM at K=30, full width, data from a
+                fixed numpy seed; no hand-written kernel runs on it; ms/step,
+                device busy, idle share, peak memory and bench.py's
+                K (2 + M) samples a second;
+6. movielens_k30_cross_check -- one update from the same state and
+                particles on the card and on the host's CPU, the host's
+                with the matmul route and the factored log-density off
+                (``ALAN_TPU_NO_MATMUL_CONTRACT=1``,
+                ``ALAN_TPU_NO_LOWRANK_LOGPROB=1``; at this shape the card
+                takes neither, so the host is the independent evaluation):
+                ELBO within 1e-4 relative, the Q state within rtol/atol 1e-4;
+7. vi_main_path -- grouped MovieLens with its opt Q (location and
+                log-scale of each Normal), K=1000, ``train.vi`` steps: the
+                lowrank forward and the backward's dU and dV modes must
+                launch in every step; their device time per step by mode;
+8. vi_cross_check -- the ELBO and the gradient of every opt param from the
+                same state and draws through the kernels and through the
+                dense route (``ALAN_TPU_NO_LAZY_LOWRANK=1``): ELBO within
+                1e-4 relative, gradients within rtol/atol 1e-4, or (the f64
+                rule) at least as close as the dense route's to a float64
+                evaluation and within 1e-4 (1 + max |g|) of it;
+9. covid_main_path -- the covid model at full size (92 regions x 109
                 training days, ``examples/models/covid.py``), a QEM Q, K=30,
                 data from a fixed numpy seed, ``train.qem`` steps on the
                 card: both small-K chain kernels must launch in every step
                 (one launch per entry of the launch plan: 3 each at T = 109,
                 K = 30), finite ELBOs and state,
                 peak memory, then a profile of two more steps;
-6. covid_cross_check -- one covid update from the same state and injected
+10. covid_cross_check -- one covid update from the same state and injected
                 particles, small-K kernels against the dense chain route:
                 ELBO within 1e-4 relative, the Q state within rtol/atol 1e-4;
-7. ar1_large_k -- the AR(1) model at K=1000, whose chain runs through the
+11. covid_rws_path -- covid at full size with its opt Q, K=30,
+                ``train.rws`` (lr 0.01, ``examples/grids/covid.yaml``): both
+                chain kernels in every step, ms/step, device busy, peak
+                memory;
+12. covid_rws_cross_check -- the ELBO and the opt params' gradients from
+                the same state and particles, chain kernels against the
+                dense chain route: 1e-4 as in phase 8;
+13. ar1_large_k -- the AR(1) model at K=1000, whose chain runs through the
                 fused log-matmul kernel (2 launches an ELBO, each of them
                 required): 20 ELBO draws must bracket the exact Kalman
                 log-likelihood by the criterion of
                 ``tests/test_problem_vs_itself.py:141-160``; then a profile
                 of two more ELBOs.
 
-Each path (phases 3, 5, 7) is driven with the launch counters set to 0
-just before it and read just after.  Then the ``kernels`` line, the card's
+Each path (phases 3, 5, 7, 9, 11, 13) is driven with the launch counters
+set to 0 just before it and read just after, and each but the last is
+profiled over two more steps.  Then the ``kernels`` line (the VI path's
+lowrank launches by backward mode and the RWS path's chain launches beside
+the QEM paths'), the card's
 name and power limit as nvidia-smi prints them, and
 ``{"ok": true, "device": {...}}`` last.
 """
@@ -99,10 +131,13 @@ PEAK_TF32_FLOP_PER_S = 495e12
 PEAK_EXP_PER_S = 16 * 132 * 1.98e9
 
 MAIN_SHAPE = (1, 300, 1000, 1000, 36)   # S, P, I, J, F of grouped MovieLens K=1000
-K_MAIN, QEM_STEPS = 1000, 5
+K_MAIN, STEPS = 1000, 5
+#: bench.py's headline: ungrouped MovieLens QEM at K=30
+K_HEADLINE = 30
 #: covid's log_infected chain at K=30: nRs * K_npis chains, T = 109 days, K
 COVID_CHAIN = (92 * 30, 109, 30)
 K_COVID = 30
+LR_QEM = 0.1
 #: nb, M, K, N of the two chain levels of the AR(1) model at K=1000
 FUSED_MAIN = (2, 1000, 1000, 1000)
 FUSED_TOP = (1, 1000, 1000, 1000)
@@ -342,6 +377,16 @@ def phase_kernels():
     fwd_tc = max(fwd_bytes / PEAK_BYTES_PER_S * 1e3, tc_ms, exp_ms)
     bwd_tc = max(bwd_bytes / PEAK_BYTES_PER_S * 1e3, tc_ms, exp_ms)
     tc_by = "operations" if max(tc_ms, exp_ms) >= fwd_bytes / PEAK_BYTES_PER_S * 1e3 else "bytes"
+    # all three gradients: the function needs one pass of scores (2 P I J F),
+    # the dU product and the dV product (2 P I J F each), the exponentials
+    # once.  The kernels do more: MODE_DU and MODE_DV each recompute the
+    # scores and the exponentials; that count is reported beside the bound
+    all_bytes = bwd_bytes + f32 * (S * P * I * F + S * J * F)   # + dU and dV out
+    all_f32, _ = bound(all_bytes, 3 * flops)
+    all_tc = max(all_bytes / PEAK_BYTES_PER_S, 3 * 3 * flops / PEAK_TF32_FLOP_PER_S,
+                 exps / PEAK_EXP_PER_S) * 1e3
+    all_impl_tc = max(all_bytes / PEAK_BYTES_PER_S, 3 * 4 * flops / PEAK_TF32_FLOP_PER_S,
+                      2 * exps / PEAK_EXP_PER_S) * 1e3
     emit({"phase": "kernels", "case": "timing", "shape": list(MAIN_SHAPE),
           "fwd_ms": fwd_ms, "bwd_dD_ms": bwd_ms, "bwd_all_grads_ms": bwd_all_ms,
           "plain_fwd_ms": plain_fwd_ms, "plain_bwd_dD_ms": plain_bwd_ms,
@@ -351,8 +396,9 @@ def phase_kernels():
           "tc_products_ms": tc_ms, "tc_exp_ms": exp_ms,
           "fwd_share_f32": fwd_bound / fwd_ms, "fwd_share_tc": fwd_tc / fwd_ms,
           "bwd_dD_share_f32": bwd_bound / bwd_ms, "bwd_dD_share_tc": bwd_tc / bwd_ms,
-          "bwd_all_grads_bound_ms": bound(bwd_bytes + f32 * (S * P * I * F + S * J * F),
-                                          3 * flops)[0],
+          "bwd_all_grads_bound_ms": all_f32, "bwd_all_grads_bound_tc_ms": all_tc,
+          "bwd_all_grads_share_tc": all_tc / bwd_all_ms,
+          "bwd_all_grads_kernels_count_tc_ms": all_impl_tc,
           "exp_per_call": exps, "clocks_power": nvidia_smi_clocks()})
     return {
         "fwd": dict(max_abs_err=main["out"]["max_abs_err"], ms=fwd_ms,
@@ -360,7 +406,9 @@ def phase_kernels():
                     bound_f32_ms=fwd_bound, dense_two_call_ms=two_call_ms),
         "bwd": dict(max_abs_err=max(main[k]["max_abs_err"] for k in ("dU", "dV", "dD")),
                     ms=bwd_ms, plain_ms=plain_bwd_ms, bound_ms=bwd_tc, bound_by=tc_by,
-                    bound_f32_ms=bwd_bound, dense_two_call_ms=None),
+                    bound_f32_ms=bwd_bound, dense_two_call_ms=None,
+                    all_grads_ms=bwd_all_ms, all_grads_bound_ms=all_tc,
+                    all_grads_bound_f32_ms=all_f32),
     }
 
 
@@ -692,9 +740,10 @@ def phase_fused_kernel():
 # ---- phases 3 to 7 --------------------------------------------------------------
 
 def _state_finite(state):
+    """Every parameter of (stateP, stateQ, ...) is finite."""
     import torch
     return all(bool(torch.isfinite(v.data).all())
-               for part in state for group in part.values() for v in group.values())
+               for part in state[:2] for group in part.values() for v in group.values())
 
 
 def _max_state_diff(a, b):
@@ -711,6 +760,8 @@ def _counters():
     from alan_tpu_torch.ops import lowrank_kernel as lk
     from alan_tpu_torch.ops import smallk_kernel as sk
     return [(lk, "FWD_LAUNCHES", "lowrank_fwd"), (lk, "BWD_LAUNCHES", "lowrank_bwd"),
+            (lk, "DD_LAUNCHES", "lowrank_bwd_dD"), (lk, "DU_LAUNCHES", "lowrank_bwd_dU"),
+            (lk, "DV_LAUNCHES", "lowrank_bwd_dV"),
             (sk, "FWD_LAUNCHES", "smallk_fwd"), (sk, "BWD_LAUNCHES", "smallk_bwd"),
             (fk, "LAUNCHES", "logmmexp")]
 
@@ -728,15 +779,14 @@ def _finite(xs):
     return all(x == x and abs(x) != float("inf") for x in xs)
 
 
-def _qem_path(phase, problem, K, must_launch, info):
-    """``QEM_STEPS`` timed ``train.qem`` steps after a warm-up, with the
-    launch counters zeroed just before and read after every step: each
-    kernel in ``must_launch`` must run in every step.  Then a profile of
-    two more steps.  Returns (step, state, launches over the timed steps)."""
+def _train_path(phase, step, state, K, must_launch, info):
+    """``STEPS`` timed training steps after a warm-up, with the launch
+    counters zeroed just before and read after every step: each kernel in
+    ``must_launch`` must run in every step.  Then a profile of two more
+    steps.  Returns (state, launches over the timed steps, the result line,
+    the profile line)."""
     import torch
-    from alan_tpu_torch import train
     from alan_tpu_torch.utils import assert_full_f32
-    step, state = train.qem(problem, K, lr=0.1)
     assert_full_f32(torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(1)
     state, _ = step(state, gen)                # warm-up (cuBLAS handles, caches)
@@ -745,18 +795,18 @@ def _qem_path(phase, problem, K, must_launch, info):
     zero_counts()
     elbos, per_step = [], []
     t0 = time.perf_counter()
-    for _ in range(QEM_STEPS):
+    for _ in range(STEPS):
         state, elbo = step(state, gen)
         elbos.append(elbo)
         per_step.append(read_counts())
     torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / QEM_STEPS * 1e3
+    ms = (time.perf_counter() - t0) / STEPS * 1e3
     launches = per_step[-1]
     steps_without = [k for k in must_launch
                      if any(b[k] - a[k] < 1 for a, b in
                             zip([dict.fromkeys(launches, 0)] + per_step, per_step))]
     elbos = [float(e) for e in elbos]
-    res = {"phase": phase, **info, "K": K, "steps": QEM_STEPS, "ms_per_step": ms,
+    res = {"phase": phase, **info, "K": K, "steps": STEPS, "ms_per_step": ms,
            "elbos": elbos, "launches": launches,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "ok": True}
     if not _finite(elbos):
@@ -769,7 +819,16 @@ def _qem_path(phase, problem, K, must_launch, info):
         res["ok"] = False
         fail(phase, f"{steps_without} did not launch in every step: {per_step}")
     emit(res)
-    _profile_step(phase, step, state, gen, ms)
+    prof = _profile_step(phase, step, state, gen, ms)
+    return state, launches, res, prof
+
+
+def _qem_path(phase, problem, K, must_launch, info):
+    """``train.qem`` steps through :func:`_train_path`; returns (step,
+    state, launches)."""
+    from alan_tpu_torch import train
+    step, state = train.qem(problem, K, lr=LR_QEM)
+    state, launches, _, _ = _train_path(phase, step, state, K, must_launch, info)
     return step, state, launches
 
 
@@ -783,10 +842,175 @@ def phase_main_path():
     return problem, step, state, launches
 
 
+def _movielens_k30(device):
+    from alan_tpu_torch.models import movielens as ml
+    ps, data, cov = ml.load_data_covariates(seed=0, M=ml.M, N=ml.N, device=device)
+    return ml.generate_problem(ps, data, cov, "qem", device=device)
+
+
+def phase_movielens_k30_main_path():
+    """bench.py's headline (``bench.py:106-120``): ungrouped MovieLens QEM
+    at K=30, full width.  No hand-written kernel runs on it: z's factor is
+    dense (its work, 1.46e8, is under the factored form's 2^28) and no
+    contraction step passes the matmul route's shape gate, so every
+    contraction is a broadcast log-sum-exp."""
+    from alan_tpu_torch import train
+    from alan_tpu_torch.models import movielens as ml
+    problem = _movielens_k30("cuda")
+    step, state = train.qem(problem, K_HEADLINE, lr=LR_QEM)
+    phase = "movielens_k30_main_path"
+    state, _, res, prof = _train_path(
+        phase, step, state, K_HEADLINE, [],
+        {"model": "movielens", "M": ml.M, "N": ml.N, "d_z": ml.d_z})
+    busy = prof["device_busy_ms"] / prof["steps"]
+    emit({"phase": phase, "summary": True, "ms_per_step": res["ms_per_step"],
+          "device_busy_ms_per_step": busy,
+          "device_idle_share_unprofiled": prof["device_idle_share_unprofiled"],
+          "peak_mem_gb": res["peak_mem_gb"],
+          # bench.py's unit: K particles of each of the 2 + M latent sites
+          "samples_per_s": K_HEADLINE * (2 + ml.M) / (res["ms_per_step"] / 1e3)})
+    return problem, step, state
+
+
+def _tree_to(tree, device):
+    from alan_tpu_torch.dims import DT
+    return {k: _tree_to(v, device) if isinstance(v, dict)
+            else (DT(v.data.to(device), v.dims) if isinstance(v, DT) else v)
+            for k, v in tree.items()}
+
+
+def phase_grad_cross_check(phase, problem, state, K, reparam, env, sample=None,
+                           exact_problem=None):
+    """The ELBO and its gradient with respect to every opt param from the
+    same state and draws (a particle tree, or a generator of one seed)
+    through the kernel route and through the route ``env`` selects: ELBO
+    within 1e-4 relative, every gradient within rtol/atol 1e-4.  With
+    ``exact_problem`` (the same problem in float64) a gradient that misses
+    that bound passes if it is at least as close as the other route's to
+    the float64 evaluation of the other route, the f64 rule of the kernel
+    checks (both routes sum ~1e6 terms a gradient in float32), and lies
+    within 1e-4 (1 + max |g|) of it, a ceiling that does not lean on the
+    other route."""
+    import torch
+    from alan_tpu_torch import train
+
+    def run(prob, dtype=None):
+        f = train.elbo_fn(prob, K, reparam)
+        leaves, sP, sQ = train.opt_leaves(state[0], state[1], dtype)
+        draws = ({"sample": sample} if sample is not None else
+                 {"generator": torch.Generator(device="cuda").manual_seed(2)})
+        elbo = f(sP, sQ, **draws)
+        grads = torch.autograd.grad(elbo, leaves)
+        torch.cuda.synchronize()
+        names = [*sP["opt"], *sQ["opt"]]
+        return float(elbo.detach()), dict(zip(names, grads))
+
+    elbo_k, grads_k = run(problem)
+    t0 = time.perf_counter()
+    os.environ.update(env)
+    try:
+        elbo_d, grads_d = run(problem)
+        other_ms = (time.perf_counter() - t0) * 1e3
+        exact = run(exact_problem, torch.float64)[1] if exact_problem is not None else None
+    finally:
+        for k in env:
+            del os.environ[k]
+    rel = abs(elbo_k - elbo_d) / abs(elbo_d)
+    grads = {}
+    for k, g in grads_d.items():
+        close = torch.allclose(grads_k[k], g, rtol=1e-4, atol=1e-4)
+        grads[k] = {"max_abs_diff": (grads_k[k] - g).abs().max().item(),
+                    "max_abs": g.abs().max().item(), "within_tol": close}
+        if exact is not None:
+            grads[k]["err_vs_f64"] = (grads_k[k].double() - exact[k]).abs().max().item()
+            grads[k]["other_err_vs_f64"] = (g.double() - exact[k]).abs().max().item()
+            grads[k]["f64_ceiling"] = 1e-4 * (1 + exact[k].abs().max().item())
+            close = close or (grads[k]["err_vs_f64"] <= grads[k]["other_err_vs_f64"]
+                              and grads[k]["err_vs_f64"] <= grads[k]["f64_ceiling"])
+        grads[k]["ok"] = close
+    res = {"phase": phase, "other_route": env, "elbo_kernel": elbo_k,
+           "elbo_other": elbo_d, "elbo_rel_diff": rel, "grads": grads,
+           "other_route_ms_one_call": other_ms,
+           "ok": rel <= 1e-4 and all(g["ok"] for g in grads.values())}
+    if not res["ok"]:
+        fail(phase, f"ELBO rel diff {rel}, gradients {grads}")
+    emit(res)
+
+
+def _movielens_f64():
+    """The same MovieLens problem with its data and covariates in float64:
+    fed float64 opt params, it evaluates the ELBO in float64."""
+    import torch
+    from alan_tpu_torch.dims import DT
+    from alan_tpu_torch.models import movielens as ml
+    a = ml.fake_data(0, ml.M, ml.N)
+    plates = ("plate_1", "plate_2")
+    f64 = lambda x: DT(torch.from_numpy(x).double().cuda(), plates)
+    return ml.grouped_problem({"plate_1": ml.M, "plate_2": ml.N}, {"obs": f64(a["obs"])},
+                              {"x": f64(a["x"])}, "opt", device="cuda")
+
+
+def phase_vi_main_path():
+    """Grouped MovieLens with its opt Q at K=1000, ``train.vi``: z's draw
+    sits in the lazy factor's U and mu_z's and psi_z's in its V, so every
+    step launches the lowrank backward's dU and dV modes."""
+    from alan_tpu_torch import train
+    from alan_tpu_torch.models import movielens as ml
+    ps, data, cov = ml.load_data_covariates(seed=0, M=ml.M, N=ml.N, device="cuda")
+    problem = ml.grouped_problem(ps, data, cov, "opt", device="cuda")
+    step, state = train.vi(problem, K_MAIN, lr=0.01)
+    phase = "vi_main_path"
+    state, launches, res, prof = _train_path(
+        phase, step, state, K_MAIN, ["lowrank_fwd", "lowrank_bwd_dU", "lowrank_bwd_dV"],
+        {"model": "grouped_movielens_opt", "method": "vi", "M": ml.M, "N": ml.N,
+         "d_z": ml.d_z})
+    modes = _lowrank_mode_ms(prof)
+    emit({"phase": phase, "summary": True, "ms_per_step": res["ms_per_step"],
+          "device_busy_ms_per_step": prof["device_busy_ms"] / prof["steps"],
+          "device_idle_share_unprofiled": prof["device_idle_share_unprofiled"],
+          "peak_mem_gb": res["peak_mem_gb"],
+          "samples_per_s": K_MAIN * (2 + ml.M) / (res["ms_per_step"] / 1e3),
+          "launches_per_step": {k: v / STEPS for k, v in launches.items() if v},
+          "lowrank_device_ms_per_step": modes,
+          "lowrank_bwd_device_ms_per_step":
+              sum(modes[k] for k in ("bwd_dD", "bwd_dU", "bwd_dV", "dv_reduce"))})
+    return problem, state, launches, modes
+
+
+def phase_covid_rws_path():
+    """Covid at full size with its opt Q, K=30, ``train.rws`` (lr 0.01, as
+    ``examples/grids/covid.yaml``): the gradients of log P and log Q flow
+    back through the small-K chain kernels."""
+    from alan_tpu_torch import train
+    from alan_tpu_torch.models import covid
+    ps, _, data, _, cov, _ = covid.load_data_covariates(seed=0, device="cuda")
+    problem = covid.generate_problem(ps, data, cov, "opt", device="cuda")
+    step, state = train.rws(problem, K_COVID, lr=0.01)
+    state, launches, res, prof = _train_path(
+        "covid_rws_path", step, state, K_COVID, ["smallk_fwd", "smallk_bwd"],
+        {"model": "covid_opt", "method": "rws", "nRs": ps["nRs"],
+         "nDs_train": ps["nDs"], "chains": ps["nRs"] * K_COVID})
+    emit({"phase": "covid_rws_path", "summary": True, "ms_per_step": res["ms_per_step"],
+          "device_busy_ms_per_step": prof["device_busy_ms"] / prof["steps"],
+          "device_idle_share_unprofiled": prof["device_idle_share_unprofiled"],
+          "peak_mem_gb": res["peak_mem_gb"],
+          "launches_per_step": {k: v / STEPS for k, v in launches.items() if v}})
+    return problem, state, launches
+
+
+def _rws_draws(problem, state, K):
+    import torch
+    from alan_tpu_torch.sampler import PermutationSampler
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tree, _ = problem.Q._sample(K, False, PermutationSampler, problem.all_platedims,
+                                gen, state=state[1])
+    return tree
+
+
 def phase_covid_main_path():
     from alan_tpu_torch.models import covid
     ps, _, data, _, cov, _ = covid.load_data_covariates(seed=0, device="cuda")
-    problem = covid.generate_problem(ps, data, cov, device="cuda")
+    problem = covid.generate_problem(ps, data, cov, "qem", device="cuda")
     step, state, launches = _qem_path(
         "covid_main_path", problem, K_COVID, ["smallk_fwd", "smallk_bwd"],
         {"model": "covid", "nRs": ps["nRs"], "nDs_train": ps["nDs"],
@@ -804,13 +1028,13 @@ def phase_ar1_large_k():
     from alan_tpu_torch.models import ar1
     problem = ar1.generate_problem("cuda")
     gen = torch.Generator(device="cuda").manual_seed(3)
-    float(problem.sample(K_AR1, gen).elbo_nograd())      # warm-up
+    float(problem.sample(K_AR1, gen, reparam=False).elbo_nograd())      # warm-up
     torch.cuda.synchronize()
     zero_counts()
     draws, per_elbo = [], []
     t0 = time.perf_counter()
     for _ in range(AR1_ELBOS):
-        draws.append(float(problem.sample(K_AR1, gen).elbo_nograd()))
+        draws.append(float(problem.sample(K_AR1, gen, reparam=False).elbo_nograd()))
         per_elbo.append(read_counts()["logmmexp"] - sum(per_elbo))
     ms = (time.perf_counter() - t0) / AR1_ELBOS * 1e3
     launches = read_counts()
@@ -836,7 +1060,7 @@ def phase_ar1_large_k():
     emit(res)
 
     def elbo(state, gen):
-        return state, float(problem.sample(K_AR1, gen).elbo_nograd())
+        return state, float(problem.sample(K_AR1, gen, reparam=False).elbo_nograd())
     _profile_step("ar1_large_k", elbo, None, gen, ms)
     return launches
 
@@ -875,46 +1099,76 @@ def _profile_step(phase, step, state, gen, ms_per_step):
     rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
                    for ev in prof.key_averages() if on_device(ev)), reverse=True)
     busy_ms = busy_us / 1e3
-    emit({"phase": "profile", "of": phase, "steps": steps, "wall_ms": wall_ms,
-          "device_busy_ms": busy_ms, "device_events": len(spans),
-          "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-          "device_idle_share_unprofiled":
-              max(0.0, 1.0 - busy_ms / steps / ms_per_step),
-          "top": [{"kernel": k[:90], "ms": us / 1e3, "calls": c}
-                  for us, k, c in rows[:12]]})
+    res = {"phase": "profile", "of": phase, "steps": steps, "wall_ms": wall_ms,
+           "device_busy_ms": busy_ms, "device_events": len(spans),
+           "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+           "device_idle_share_unprofiled":
+               max(0.0, 1.0 - busy_ms / steps / ms_per_step),
+           "top": [{"kernel": k[:90], "ms": us / 1e3, "calls": c}
+                   for us, k, c in rows[:12]]}
+    emit(res)
+    res["rows"] = rows
+    return res
 
 
-def phase_cross_check(phase, problem, step, state, K, env):
-    """One update from the same state and injected particles with the
-    kernel route and with the route that ``env`` selects."""
+def _lowrank_mode_ms(prof):
+    """Device ms per step of the lowrank kernels, by mode (the template
+    argument of ``lse_tc_kernel``), of the split pass and of dV's reduce."""
+    import re
+    names = {"0": "fwd", "1": "bwd_dD", "2": "bwd_dU", "3": "bwd_dV"}
+    out = dict.fromkeys([*names.values(), "split", "dv_reduce"], 0.0)
+    for us, key, _ in prof["rows"]:
+        m = re.search(r"lse_tc_kernel<\D*([0-3])", key)
+        name = (names[m.group(1)] if m else "split" if "lse_split_kernel" in key
+                else "dv_reduce" if "lse_bwd_dv_reduce" in key else None)
+        if name is not None:
+            out[name] += us / 1e3 / prof["steps"]
+    return out
+
+
+def phase_cross_check(phase, problem, step, state, K, env, host_problem=None):
+    """One QEM update from the same state and injected particles with the
+    kernel route and with the route that ``env`` selects: ELBO within 1e-4
+    relative, the updated Q state within rtol/atol 1e-4.  With
+    ``host_problem`` (the same problem on the CPU) the other update runs
+    on the host, plain PyTorch: the independent evaluation for a path
+    whose routes on the card are already the plain ones."""
     import torch
+    from alan_tpu_torch import train
     from alan_tpu_torch.sampler import PermutationSampler
     gen = torch.Generator(device="cuda").manual_seed(2)
     tree, _ = problem.Q._sample(K, False, PermutationSampler,
                                 problem.all_platedims, gen, state=state[1])
-    (newP_k, newQ_k), elbo_k = step(state, sample=tree)
+    (_, newQ_k), elbo_k = step(state, sample=tree)
     torch.cuda.synchronize()
+    other_step = step
+    if host_problem is not None:
+        other_step, _ = train.qem(host_problem, K, lr=LR_QEM, device="cpu")
+        state, tree = tuple(_tree_to(s, "cpu") for s in state), _tree_to(tree, "cpu")
     t0 = time.perf_counter()
     os.environ.update(env)
     try:
-        (newP_d, newQ_d), elbo_d = step(state, sample=tree)
+        (_, newQ_d), elbo_d = other_step(state, sample=tree)
         torch.cuda.synchronize()
     finally:
         for k in env:
             del os.environ[k]
-    dense_ms = (time.perf_counter() - t0) * 1e3
+    other_ms = (time.perf_counter() - t0) * 1e3
     elbo_k, elbo_d = float(elbo_k), float(elbo_d)
     rel = abs(elbo_k - elbo_d) / abs(elbo_d)
+    if host_problem is not None:
+        newQ_k = _tree_to(newQ_k, "cpu")
     diffs = _max_state_diff(newQ_k, newQ_d)
     state_ok = all(
         torch.allclose(v.data, newQ_d[g][k].with_dims_front(list(v.dims)).data,
                        rtol=1e-4, atol=1e-4)
         for g in ("qem_params", "qem_means") for k, v in newQ_k[g].items())
-    res = {"phase": phase, "other_route": env, "elbo_kernel": elbo_k,
-           "elbo_dense": elbo_d, "elbo_rel_diff": rel,
+    res = {"phase": phase, "other_route": env,
+           "other_device": "cpu" if host_problem is not None else "cuda",
+           "elbo_kernel": elbo_k, "elbo_other": elbo_d, "elbo_rel_diff": rel,
            "max_state_abs_diff": max(diffs.values()),
            "worst_state_entry": max(diffs, key=diffs.get),
-           "dense_step_ms_one_call": dense_ms,
+           "other_step_ms_one_call": other_ms,
            "ok": rel <= 1e-4 and state_ok}
     if not res["ok"]:
         fail(phase, f"ELBO rel diff {rel}, state diffs {diffs}")
@@ -959,10 +1213,26 @@ def main():
     phase_cross_check("cross_check", problem, step, state, K_MAIN,
                       {"ALAN_TPU_NO_LAZY_LOWRANK": "1"})
     del problem, step, state
+    problem, step, state = phase_movielens_k30_main_path()
+    phase_cross_check("movielens_k30_cross_check", problem, step, state, K_HEADLINE,
+                      {"ALAN_TPU_NO_MATMUL_CONTRACT": "1",
+                       "ALAN_TPU_NO_LOWRANK_LOGPROB": "1"},
+                      host_problem=_movielens_k30("cpu"))
+    del problem, step, state
+    problem, state, vi_launches, vi_modes = phase_vi_main_path()
+    phase_grad_cross_check("vi_cross_check", problem, state, K_MAIN, True,
+                           {"ALAN_TPU_NO_LAZY_LOWRANK": "1"},
+                           exact_problem=_movielens_f64())
+    del problem, state
     problem, step, state, covid_launches = phase_covid_main_path()
     phase_cross_check("covid_cross_check", problem, step, state, K_COVID,
                       {"ALAN_TPU_NO_SMALLK_CHAIN": "1"})
     del problem, step, state
+    problem, state, rws_launches = phase_covid_rws_path()
+    phase_grad_cross_check("covid_rws_cross_check", problem, state, K_COVID, False,
+                           {"ALAN_TPU_NO_SMALLK_CHAIN": "1"},
+                           sample=_rws_draws(problem, state, K_COVID))
+    del problem, state
     ar1_launches = phase_ar1_large_k()
 
     smallk_src = "alan_tpu_torch/csrc/smallk_logmmexp.cu"
@@ -970,17 +1240,22 @@ def main():
         dict(name="lowrank_lse_fwd", route="cuda",
              source="alan_tpu_torch/csrc/lowrank_lse.cu",
              replaces="alan_tpu/ops/pallas_lowrank.py:215",
-             launches=ml_launches["lowrank_fwd"], library_ms=None, **lowrank["fwd"]),
+             launches=ml_launches["lowrank_fwd"], vi_launches=vi_launches["lowrank_fwd"],
+             library_ms=None, **lowrank["fwd"]),
         dict(name="lowrank_lse_bwd", route="cuda",
              source="alan_tpu_torch/csrc/lowrank_lse.cu",
              replaces="alan_tpu/ops/pallas_lowrank.py:298",
-             launches=ml_launches["lowrank_bwd"], library_ms=None, **lowrank["bwd"]),
+             launches=ml_launches["lowrank_bwd"],
+             vi_launches_by_mode={m: vi_launches[f"lowrank_bwd_{m}"] for m in ("dD", "dU", "dV")},
+             vi_device_ms_per_step=vi_modes, library_ms=None, **lowrank["bwd"]),
         dict(name="smallk_logmmexp_fwd", route="cuda", source=smallk_src,
              replaces="alan_tpu/ops/pallas_smallk.py:66",
-             launches=covid_launches["smallk_fwd"], library_ms=None, **smallk["fwd"]),
+             launches=covid_launches["smallk_fwd"], rws_launches=rws_launches["smallk_fwd"],
+             library_ms=None, **smallk["fwd"]),
         dict(name="smallk_logmmexp_bwd", route="cuda", source=smallk_src,
              replaces="alan_tpu/ops/pallas_smallk.py:80",
-             launches=covid_launches["smallk_bwd"], library_ms=None, **smallk["bwd"]),
+             launches=covid_launches["smallk_bwd"], rws_launches=rws_launches["smallk_bwd"],
+             library_ms=None, **smallk["bwd"]),
         dict(name="logmmexp_fused", route="cuda",
              source="alan_tpu_torch/csrc/logmmexp.cu",
              replaces="alan_tpu/ops/pallas_logmmexp.py:28",

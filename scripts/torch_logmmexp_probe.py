@@ -179,7 +179,7 @@ from torch.profiler import ProfilerActivity, profile
 from alan_tpu_torch.models import ar1
 problem = ar1.generate_problem("cuda")
 gen = torch.Generator(device="cuda").manual_seed(3)
-elbo = lambda: float(problem.sample(1000, gen).elbo_nograd())
+elbo = lambda: float(problem.sample(1000, gen, reparam=False).elbo_nograd())
 for _ in range(3):
     elbo()
 torch.cuda.synchronize()

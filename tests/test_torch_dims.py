@@ -160,6 +160,71 @@ def test_reduce_ks_matches_jax():
     assert_dt_close(jr.reduce_Ks(jl, Ks), tr.reduce_Ks(tl, Ks), 1e-5, 1e-5)
 
 
+@pytest.mark.parametrize("m,k,n,env,want", [
+    (8, 16, 8, {}, False),                         # CPU tensors: never
+    (8, 16, 8, {"ALAN_TPU_MATMUL_MIN_K": 4}, True),
+    (8, 16, 8, {"ALAN_TPU_MATMUL_MIN_K": 32}, False),
+    (8, 16, 8, {"ALAN_TPU_MATMUL_MIN_K": 4, "ALAN_TPU_NO_MATMUL_CONTRACT": 1}, False),
+    (8, 16, 8, {"ALAN_TPU_MATMUL_MIN_K": 4, "ALAN_TPU_MATMUL_MIN_MN": 16}, False),
+    (8, 16, 8, {"ALAN_TPU_MATMUL_MIN_K": 4, "ALAN_TPU_MATMUL_MIN_MN": 16,
+                "ALAN_TPU_MATVEC_MIN_MK": 128}, True),
+    (8, 16, 8, {"ALAN_TPU_MATMUL_MIN_K": 4, "ALAN_TPU_MATMUL_MIN_MN": 16,
+                "ALAN_TPU_MATVEC_MIN_MK": 129}, False),
+    (64, 64, 1, {"ALAN_TPU_MATMUL_MIN_K": 4}, False),   # a matvec below 65536
+    (1024, 64, 1, {"ALAN_TPU_MATMUL_MIN_K": 4}, True),  # a matvec at 65536
+])
+def test_matmul_route_knobs_match_jax(m, k, n, env, want, monkeypatch):
+    """``logsumexp_sum`` takes the log-space matmul route under the same
+    knobs as ``alan_tpu``'s.  ``alan_tpu`` reads ``ALAN_TPU_NO_MATMUL_CONTRACT``
+    and ``ALAN_TPU_MATMUL_MIN_K`` when it is imported, so its module values
+    are set here from the same environment."""
+    import alan_tpu.ops.contraction as jc
+    import alan_tpu.reduce_ks as jr
+    import alan_tpu_torch.ops.contraction as tc
+    import alan_tpu_torch.reduce_ks as tr
+    from test_torch_harness import Env
+    routes = []
+    for mod, tag in ((jc, "jax"), (tc, "port")):
+        orig = mod.pairwise_logsumexp_contract
+        monkeypatch.setattr(mod, "pairwise_logsumexp_contract",
+                            lambda a, b, Ks, orig=orig, tag=tag:
+                            routes.append(tag) or orig(a, b, Ks))
+    env = {k: str(v) for k, v in env.items()}
+    monkeypatch.setattr(jr, "_USE_MATMUL_CONTRACT",
+                        env.get("ALAN_TPU_NO_MATMUL_CONTRACT") != "1")
+    monkeypatch.setattr(jr, "_MATMUL_MIN_K_ENV", env.get("ALAN_TPU_MATMUL_MIN_K"))
+    monkeypatch.setattr(jr, "_MATMUL_MIN_K", None)
+    ja, ta = both(A(m, k), "K_a", "K_b")
+    jb, tb = both(A(k, n), "K_b", "K_c")
+    with Env(**env):
+        jout = jr.logsumexp_sum(("K_b",), ja, jb)
+        tout = tr.logsumexp_sum(("K_b",), ta, tb)
+    assert routes == (["jax", "port"] if want else [])
+    assert_dt_close(jout, tout, 1e-5, 1e-5)
+
+
+def test_matmul_min_k_device_rule(monkeypatch):
+    """Unset, the contracted size of the matmul route follows the tensors'
+    device (8 on the card, never on the CPU); set, it is the knob's."""
+    import alan_tpu_torch.reduce_ks as tr
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    monkeypatch.delenv("ALAN_TPU_MATMUL_MIN_K", raising=False)
+    assert tr._matmul_min_k(cuda) == 8 and tr._matmul_min_k(cpu) == 1 << 30
+    monkeypatch.setenv("ALAN_TPU_MATMUL_MIN_K", "16")
+    assert tr._matmul_min_k(cuda) == 16 == tr._matmul_min_k(cpu)
+
+
+def test_vector_matmul_promotes_dtypes():
+    """A float32 vector . a float64 one is computed in float64, as
+    ``jnp.einsum`` promotes (a float64 evaluation of a model whose priors
+    hold float32 constants takes this path)."""
+    a = td.DT(torch.arange(6.0).reshape(2, 3), ("K",))
+    b = td.DT(torch.arange(3.0, dtype=torch.float64), ())
+    out = a @ b
+    assert out.data.dtype == torch.float64 and out.dims == ("K",)
+    assert out.data.tolist() == [5.0, 14.0]
+
+
 def test_scalars_follow_the_tensors_device():
     """Python numbers (and the 0-d CPU tensors they become) combine with
     tensors on another device; the meta device stands in for CUDA here."""

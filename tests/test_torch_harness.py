@@ -117,7 +117,7 @@ def port_movielens(arrays, grouped=True, device="cpu"):
     cov = {"x": convert.dt_from_numpy(arrays["x"], plates, device)}
     data = {"obs": convert.dt_from_numpy(arrays["obs"], plates, device)}
     build = tml.grouped_problem if grouped else tml.generate_problem
-    return build({"plate_1": M, "plate_2": N}, data, cov, device)
+    return build({"plate_1": M, "plate_2": N}, data, cov, device=device)
 
 
 # ---- the harness's own tests ------------------------------------------------

@@ -13,10 +13,13 @@ and no JAX it runs without the suite's conftest:
   edges of the tensor-core tiles, feature axes taken in chunks and (by the
   f64 rule) the Normal's factors with heavy cancellation; one forward and
   one backward launch per call, whichever gradients are asked for; a lazy
-  factor with a wide feature axis reaches the kernels;
+  factor with a wide feature axis reaches the kernels; the backward's
+  launches by mode (dD, dD and dU, dV);
 * one grouped-MovieLens QEM step on the card (lazy path forced, so z's
   factor runs through the kernels) against the same step on the CPU (the
-  plain version), from the same particles;
+  plain version), from the same particles; one VI step of grouped MovieLens
+  with its opt Q through the kernels (dU and dV launched) against the dense
+  route on the card, from the same draws;
 * the small-K chain kernels (several tree levels a launch, forward and
   backward, over whole chains) against the level-by-level plain version
   (``reference_level``) on the same CUDA tensors, at covid's chain (2760
@@ -137,11 +140,16 @@ def test_one_launch_each_way_per_call(card):
               for t in (U, V, D)}
         Ut, Vt, Dt = (ts[id(t)] for t in (U, V, D))
         before = (tk.FWD_LAUNCHES, tk.BWD_LAUNCHES)
+        modes = (tk.DD_LAUNCHES, tk.DU_LAUNCHES, tk.DV_LAUNCHES)
         out = tk.lowrank_logsumexp(Ut, Vt, Dt)
         assert (tk.FWD_LAUNCHES, tk.BWD_LAUNCHES) == (before[0] + 1, before[1])
         torch.autograd.grad(out, [ts[id(w)] for w in wanted], G)
         torch.cuda.synchronize()
         assert (tk.FWD_LAUNCHES, tk.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        # by mode: dD alone, or dD with dU; dV beside either where asked for
+        want_U, want_V = Ut.requires_grad, Vt.requires_grad
+        assert (tk.DD_LAUNCHES - modes[0], tk.DU_LAUNCHES - modes[1],
+                tk.DV_LAUNCHES - modes[2]) == (int(not want_U), int(want_U), int(want_V))
 
 
 def test_wide_lazy_factor_reaches_the_kernels(card):
@@ -207,6 +215,34 @@ def test_qem_step_on_card_matches_cpu(card, monkeypatch):
         for k, v in q_cpu[group].items():
             w = q_card[group][k].with_dims_front(list(v.dims))
             torch.testing.assert_close(w.data.cpu(), v.data, rtol=1e-4, atol=1e-4)
+
+
+def test_vi_step_on_card_matches_plain_route(card, monkeypatch):
+    """One VI step of grouped MovieLens with its opt Q through the lazy
+    route (the kernels, all three gradients: z's draw lies in U, mu_z's and
+    psi_z's in V) against the same step through the dense route, from the
+    same draws on the card."""
+    monkeypatch.setenv("ALAN_TPU_LOWRANK_MIN", "1")
+    monkeypatch.setenv("ALAN_TPU_LAZY_LOWRANK", "1")
+    K = 30
+    ps, data, cov = tml.load_data_covariates(seed=3, M=20, N=5, device=card)
+    prob = tml.grouped_problem(ps, data, cov, "opt", device=card)
+    step, state = train.vi(prob, K, lr=0.01, device=card)
+    out = {}
+    for route in ("lazy", "dense"):
+        if route == "dense":
+            monkeypatch.setenv("ALAN_TPU_NO_LAZY_LOWRANK", "1")
+        modes = (tk.DU_LAUNCHES, tk.DV_LAUNCHES)
+        out[route] = step(state, torch.Generator(device=card).manual_seed(5))
+        torch.cuda.synchronize()
+        launched = (tk.DU_LAUNCHES - modes[0], tk.DV_LAUNCHES - modes[1])
+        assert launched == ((1, 1) if route == "lazy" else (0, 0))
+    (_, q_lazy, _), e_lazy = out["lazy"]
+    (_, q_dense, _), e_dense = out["dense"]
+    assert abs(float(e_lazy) - float(e_dense)) <= 1e-4 * abs(float(e_dense))
+    for k, v in q_dense["opt"].items():
+        w = q_lazy["opt"][k].with_dims_front(list(v.dims))
+        torch.testing.assert_close(w.data, v.data, rtol=1e-4, atol=1e-4)
 
 
 # ---- the small-K chain kernels ------------------------------------------------

@@ -255,10 +255,35 @@ def test_chain_of_large_k_takes_the_fused_route(monkeypatch):
     ((2, 4, 300, 300), torch.float64, {"ALAN_TPU_SMALLK_CHAIN": 1}, True),
     ((2, 4, 30, 30), torch.float32,
      {"ALAN_TPU_SMALLK_CHAIN": 1, "ALAN_TPU_NO_SMALLK_CHAIN": 1}, False),
+    ((2, 4, 30, 30), torch.float32, {"ALAN_TPU_SMALLK_CHAIN_MAX_K": 29}, False),
+    ((2, 4, 30, 30), torch.float32, {"ALAN_TPU_SMALLK_CHAIN_MAX_K": 30}, True),
+    ((2, 4, 120, 120), torch.float32, {"ALAN_TPU_SMALLK_CHAIN_MAX_K": 128}, True),
+    ((2, 4, 5, 5), torch.float32,
+     {"ALAN_TPU_SMALLK_CHAIN_MAX_K": 4, "ALAN_TPU_SMALLK_CHAIN": 1}, True),
 ])
 def test_smallk_routing(shape, dtype, env, want):
     with Env(**env):
         assert tlm._use_smallk(torch.zeros(shape, dtype=dtype)) is want
+
+
+@pytest.mark.parametrize("K,env", [
+    (30, {}), (100, {}), (101, {}),
+    (30, {"ALAN_TPU_SMALLK_CHAIN_MAX_K": 29}), (30, {"ALAN_TPU_SMALLK_CHAIN_MAX_K": 30}),
+    (120, {"ALAN_TPU_SMALLK_CHAIN_MAX_K": 128}), (5, {"ALAN_TPU_NO_SMALLK_CHAIN": 1}),
+])
+def test_smallk_routing_matches_jax(K, env, monkeypatch):
+    """The port's small-K decision is ``alan_tpu``'s wherever the TPU's own
+    limits (a Pallas TPU backend, VMEM, 128 lanes of batch) are met: here
+    they are declared met, and the batch fills the lanes."""
+    import importlib
+    jlm = importlib.import_module("alan_tpu.ops.logmmexp")
+    jps = importlib.import_module("alan_tpu.ops.pallas_smallk")
+    monkeypatch.setattr(jps, "have_pallas_tpu", lambda: True)
+    monkeypatch.setattr(jps, "fits_vmem", lambda K, nB: True)
+    shape = (128, 4, K, K)
+    with Env(**env):
+        want = jlm._use_smallk_lanes(jnp.zeros(shape, jnp.float32))
+        assert tlm._use_smallk(torch.zeros(shape)) is want
 
 
 def test_smallk_refuses_non_float32_when_forced():

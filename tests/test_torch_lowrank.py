@@ -165,6 +165,10 @@ def test_contract_param_side_matches_jax():
     ((4, 5), dict(ALAN_TPU_LOWRANK_MIN=10 ** 9), False),
     ((4, 5), {}, False),
     ((1 << 13, 1 << 13), {}, False),   # V operand above the 2^26 cap
+    ((4, 5), dict(ALAN_TPU_LOWRANK_MIN=1, ALAN_TPU_NO_LOWRANK_LOGPROB=1), False),
+    ((4, 5), dict(ALAN_TPU_LOWRANK_MIN=1, ALAN_TPU_LOWRANK_OPERAND_CAP=14), False),
+    ((4, 5), dict(ALAN_TPU_LOWRANK_MIN=1, ALAN_TPU_LOWRANK_OPERAND_CAP=15), True),
+    ((1 << 13, 1 << 13), dict(ALAN_TPU_LOWRANK_MIN=1), True),
 ])
 def test_routing_matches_jax(sizes, env, expect):
     kz, kg = sizes
@@ -195,6 +199,24 @@ def test_lazy_threshold_matches_jax():
         assert not tlr.lowrank_lazy_preferred(tx, tp)
     with Env(**PORT_LAZY):
         assert tlr.lowrank_lazy_preferred(tx, tp)
+
+
+@pytest.mark.parametrize("lazy_min,expect_big,expect_small", [
+    (None, True, False), (1, True, True), (10 ** 12, False, False),
+    (300 * 1000 * 1000, True, False), (300 * 1000 * 1000 + 1, False, False)])
+def test_lazy_min_knob_matches_jax(lazy_min, expect_big, expect_small):
+    """``ALAN_TPU_LAZY_LOWRANK_MIN`` moves the lazy crossover in both
+    packages alike (the main path's cross is 3e8 elements)."""
+    env = {} if lazy_min is None else {"ALAN_TPU_LAZY_LOWRANK_MIN": lazy_min}
+    for sizes, expect in (({"K_z": 1000, "plate_1": 300, "K_g": 1000}, expect_big),
+                          ({"K_z": 30, "plate_1": 300, "K_g": 30}, expect_small)):
+        tx = td.DT(torch.zeros(sizes["K_z"], sizes["plate_1"], 1), ("K_z", "plate_1"))
+        tp = {"loc": td.DT(torch.zeros(sizes["K_g"], 1), ("K_g",))}
+        jx = jd.DT(jnp.zeros((sizes["K_z"], sizes["plate_1"], 1)), ("K_z", "plate_1"))
+        jp = {"loc": jd.DT(jnp.zeros((sizes["K_g"], 1)), ("K_g",))}
+        with Env(**env):
+            assert tlr.lowrank_lazy_preferred(tx, tp) == expect
+            assert jlr.lowrank_lazy_preferred(jx, jp) == expect
 
 
 def _script(name):

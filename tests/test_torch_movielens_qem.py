@@ -151,3 +151,12 @@ def test_entry_points_default_to_cuda():
     prob = port_movielens(arrays)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         train.qem(prob, 3)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        tml.grouped_problem(ps, data, cov, "opt")
+    opt = tml.grouped_problem(ps, data, cov, "opt", device="cpu")
+    for factory in (train.vi, train.rws):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            factory(opt, 3)
+    for method in ("qem", "vi", "rws"):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            train.fit(opt, method, K=3, iters=1)

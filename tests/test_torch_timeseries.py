@@ -195,7 +195,7 @@ def covid_setup():
     with Env(**JAX_LOWRANK):
         jprob = jax_covid(arrays, 16)
     with Env(**PORT_LOWRANK):
-        tprob = tcovid.generate_problem(ps, data, cov, device="cpu")
+        tprob = tcovid.generate_problem(ps, data, cov, "qem", device="cpu")
     jtree, _ = jprob.Q._sample(COVID_K, False, JPerm, jprob.all_platedims,
                                jax.random.key(3))
     return jprob, tprob, jtree
