@@ -11,23 +11,42 @@ explicit ``device="cpu"`` runs on the host.  The hand-written kernels
 The port trains by QEM, VI and RWS (``OptParam``s and ``extra_opt_params``
 under ``torch.optim.Adam``) and carries the MovieLens models, the covid
 timeseries model and the ELBO of the AR(1) timeseries model.
+
+It reads a posterior out: moments (``Sample.moments``; ``mean``, ``var``,
+``std_from_raw_moment`` and the rest of ``moments``), the marginal weights
+of the particles (``Sample.marginals()``, with their ESS), importance
+samples (``Sample.importance_sample(N, generator)``, by the reverse replay
+of the contraction) and the predictive log-likelihood of held-out data
+(``ImportanceSample.extend(...).predictive_ll(...)``;
+``predict.importance_sample_fn`` and ``predict.predictive_ll_fn`` run the
+whole pipeline).  A plate that holds a Timeseries has no importance samples
+yet: that needs FFBS.
 """
 
 from .dims import DT, dt
 from .bound import BoundPlate, named
 from .ir import (Plate, Group, Data, Timeseries, OptParam, QEMParam, Normal,
                  Bernoulli, NegativeBinomial)
-from .sampler import PermutationSampler
+from .sampler import (PermutationSampler, CategoricalSampler, IndependentSampler,
+                      samplers)
 from .problem import Problem
 from .sample import Sample
-from .moments import mean, mean2
+from .marginals import Marginals
+from .importance import ImportanceSample, ExtendedImportanceSample
+from .moments import (RawMoment, CompoundMoment, mean, mean2, mean_log, mean_log1m,
+                      mean_recip, mean_xxT, var, cov_x, var_from_raw_moment,
+                      std_from_raw_moment)
 from .split import no_checkpoint
-from . import train, convert
+from . import train, convert, predict
 
 __all__ = [
     "DT", "dt", "named", "Plate", "BoundPlate", "Problem", "Group", "Data",
     "Timeseries", "OptParam", "QEMParam", "Normal", "Bernoulli",
     "NegativeBinomial",
-    "PermutationSampler", "Sample", "mean", "mean2", "no_checkpoint",
-    "train", "convert",
+    "PermutationSampler", "CategoricalSampler", "IndependentSampler",
+    "samplers", "Sample", "Marginals", "ImportanceSample",
+    "ExtendedImportanceSample", "RawMoment", "CompoundMoment", "mean",
+    "mean2", "mean_log", "mean_log1m", "mean_recip", "mean_xxT", "var",
+    "cov_x", "var_from_raw_moment", "std_from_raw_moment", "no_checkpoint",
+    "train", "convert", "predict",
 ]

@@ -17,8 +17,9 @@ import torch
 __all__ = [
     "DT", "dt", "as_dt", "is_dt", "dims_of", "dimsizes_of", "unify_dims",
     "check_unique_dims", "bind", "order", "detach", "expand_to", "align",
-    "pos_op", "matmul", "elementwise", "sum_dims", "mean_dims", "logsumexp_dims",
-    "logmeanexp_dims", "sum_pos", "dt_index", "rename_dim",
+    "pos_op", "matmul", "elementwise", "sum_dims", "mean_dims", "prod_dims",
+    "amax_dims", "amin_dims", "logsumexp_dims", "logmeanexp_dims", "sum_pos",
+    "dt_index", "slice_dim", "rename_dim",
 ]
 
 
@@ -328,6 +329,10 @@ def _reduce(fn):
 
 sum_dims = _reduce(lambda a, ax: torch.sum(a, dim=ax))
 mean_dims = _reduce(lambda a, ax: torch.mean(a, dim=ax))
+# torch.prod takes one dim: the reduced axes are adjacent, so flatten them
+prod_dims = _reduce(lambda a, ax: torch.prod(a.flatten(ax[0], ax[-1]), dim=ax[0]))
+amax_dims = _reduce(lambda a, ax: torch.amax(a, dim=ax))
+amin_dims = _reduce(lambda a, ax: torch.amin(a, dim=ax))
 
 
 def logsumexp_dims(x, ds, ignore_extra_dims: bool = False) -> DT:
@@ -406,3 +411,10 @@ def dt_index(x, dim: str, idx) -> DT:
 
     out = torch.take_along_dim(xa, ia, dim=nC).squeeze(nC)
     return DT(out, tuple(common))
+
+
+def slice_dim(x, dim: str, start: int, stop: int) -> DT:
+    """Static slice ``[start, stop)`` along a named dim (the original plate
+    region of a predictive log-likelihood)."""
+    o = as_dt(x).order(dim)
+    return bind(DT(o.data.narrow(len(o.dims), start, stop - start), o.dims), dim)

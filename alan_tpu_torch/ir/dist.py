@@ -17,7 +17,7 @@ import types
 
 import torch
 
-from ..dims import DT, as_dt
+from ..dims import DT, as_dt, bind, dims_of, expand_to, slice_dim
 from ..utils import Number, function_arguments
 from ..distributions.families import FAMILIES, Family
 from ..distributions.dimdist import DimDist
@@ -144,6 +144,48 @@ class Dist:
 
     def log_prob(self, sample, scope):
         return self.tdd(scope).log_prob(sample)
+
+    def filter_scope(self, scope):
+        return {k: v for k, v in scope.items() if k in self.all_args}
+
+    def sample_extended(self, sample, name, scope, inputs_params,
+                        original_platedims, extended_platedims,
+                        active_extended_platedims, Ndim, generator,
+                        original_data):
+        """A draw from the prior over the extended plates whose original
+        region holds the posterior sample (a latent) or the training data
+        (a data variable)."""
+        original_sample = as_dt(sample if sample is not None else original_data[name])
+        extended = self.tdd(self.filter_scope(scope)).sample(
+            generator, False, [*active_extended_platedims, Ndim],
+            extended_platedims, sample_shape=self.sample_shape)
+
+        # overwrite the original region (out of place: a copy of the draw)
+        shared = [d for d in extended.dims
+                  if d in original_platedims and d in dims_of(original_sample)]
+        ext_o = extended.order(*shared)       # dims rest, pos (*shared, *pos)
+        orig_arr = expand_to(original_sample.order(*shared), ext_o.dims)
+        idx = (tuple(slice(None) for _ in ext_o.dims)
+               + tuple(slice(0, original_platedims[d]) for d in shared))
+        new_data = ext_o.data.clone()
+        new_data[idx] = orig_arr.to(new_data.dtype)
+        return bind(DT(new_data, ext_o.dims), *shared)
+
+    def predictive_ll(self, sample, name, scope, inputs_params,
+                      original_platedims, extended_platedims,
+                      original_data, extended_data):
+        """``(original_ll, extended_ll)``: the log-likelihood of the
+        extended data, and its restriction to the original plate region."""
+        original_ll, extended_ll = {}, {}
+        if name in extended_data:
+            ell = self.log_prob(extended_data[name], scope)
+            extended_ll[name] = ell
+            oll = ell
+            for d in dims_of(ell):
+                if d in original_platedims:
+                    oll = slice_dim(oll, d, 0, original_platedims[d])
+            original_ll[name] = oll
+        return original_ll, extended_ll
 
 
 def sample_gdt(prog: dict, scope: dict, keygen, active_platedims, K_dim,

@@ -2,7 +2,8 @@
 
 A model is a nested tree of Plates whose children are distributions, Groups,
 Timeseries, Data markers or sub-Plates.  Every traversal (Q-sampling, logPQ
-evaluation) is a Python recursion over this static tree.
+evaluation, the prior extension of importance samples and the predictive
+log-likelihood) is a Python recursion over this static tree.
 """
 from __future__ import annotations
 
@@ -106,6 +107,65 @@ class Plate:
                 sample[childname] = platesample
                 scope[childname] = platesample
         return sample
+
+    # -- prior extension over enlarged plates -------------------------------
+    def sample_extended(self, sample, name, scope, inputs_params,
+                        original_platedims, extended_platedims,
+                        active_extended_platedims, Ndim, keygen, original_data):
+        """The importance samples ``sample`` (a tree) with every variable of
+        P drawn from the prior over the extended plates, its original
+        region kept (``Dist.sample_extended``); returns a new tree."""
+        if name is not None:
+            active_extended_platedims = [*active_extended_platedims, name]
+
+        sample = dict(sample or {})
+        scope = update_scope(scope, inputs_params)
+        for childname, childP in self.flat_prog.items():
+            common = dict(
+                name=childname,
+                scope=scope,
+                inputs_params=inputs_params.get(childname) or {},
+                original_platedims=original_platedims,
+                extended_platedims=extended_platedims,
+                active_extended_platedims=active_extended_platedims,
+                Ndim=Ndim,
+            )
+            if isinstance(childP, Plate):
+                childsample = childP.sample_extended(
+                    sample=sample.get(childname) or {}, keygen=keygen,
+                    original_data=original_data.get(childname, {}), **common)
+            else:
+                childsample = childP.sample_extended(
+                    sample=sample.get(childname), generator=keygen(),
+                    original_data=original_data, **common)
+            sample[childname] = childsample
+            scope = update_scope(scope, {childname: childsample})
+        return sample
+
+    # -- predictive log-likelihood --------------------------------------------
+    def predictive_ll(self, sample, name, scope, inputs_params,
+                      original_platedims, extended_platedims,
+                      original_data, extended_data):
+        """``(original_lls, extended_lls)``, varname -> log-likelihood of
+        each data variable given the extended sample, over the extended
+        plates and over their original region."""
+        scope = update_scope(scope, inputs_params)
+        original_lls, extended_lls = {}, {}
+        for childname, childP in self.flat_prog.items():
+            child_orig, child_ext = childP.predictive_ll(
+                sample=sample.get(childname),
+                name=childname,
+                scope=scope,
+                inputs_params=inputs_params.get(childname) or {},
+                original_platedims=original_platedims,
+                extended_platedims=extended_platedims,
+                original_data=original_data,
+                extended_data=extended_data,
+            )
+            scope = update_scope(scope, {childname: sample.get(childname)})
+            original_lls.update(child_orig)
+            extended_lls.update(child_ext)
+        return original_lls, extended_lls
 
     # -- name maps ----------------------------------------------------------
     def groupvarname2Kdim(self, K: int):

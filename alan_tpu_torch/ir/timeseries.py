@@ -114,8 +114,10 @@ class Timeseries:
 
     def sample_extended(self, *args, **kwargs):
         raise NotImplementedError(
-            "Timeseries.sample_extended is not ported to alan_tpu_torch yet")
+            "Timeseries.sample_extended is not ported to alan_tpu_torch yet "
+            "(ROADMAP queue 1 item 4)")
 
     def predictive_ll(self, *args, **kwargs):
         raise NotImplementedError(
-            "Timeseries.predictive_ll is not ported to alan_tpu_torch yet")
+            "Timeseries.predictive_ll is not ported to alan_tpu_torch yet "
+            "(ROADMAP queue 1 item 4)")

@@ -8,7 +8,10 @@ Q is a factorised Normal whose parameters are QEM parameters
 
 Fake data comes from a numpy seed (:func:`fake_data`), so the same arrays
 can feed this package and ``alan_tpu``: covariates ``x ~ N(0, 1)``, latents
-from the prior, ``obs ~ Bernoulli(sigmoid(z . x))``.
+from the prior, ``obs ~ Bernoulli(sigmoid(z . x))``; held-out films, for
+the predictive log-likelihood, are drawn after them from the same users'
+``z`` (:func:`load_all_data_covariates`, the counterpart of
+``examples/models/movielens.py:21-63``'s ``all_platesizes``).
 """
 from __future__ import annotations
 
@@ -24,17 +27,27 @@ d_z = 18
 M, N = 300, 5
 
 
-def fake_data(seed=0, M=M, N=N):
-    """numpy arrays ``x`` (M, N, d_z), ``obs`` (M, N) and the latents
-    ``mu_z``, ``psi_z`` (d_z,) and ``z`` (M, d_z) they were drawn from."""
+def fake_data(seed=0, M=M, N=N, N_test=0):
+    """numpy arrays ``x`` (M, N, d_z), ``obs`` (M, N), the latents
+    ``mu_z``, ``psi_z`` (d_z,) and ``z`` (M, d_z) they were drawn from, and
+    ``x_test`` (M, N_test, d_z), ``obs_test`` (M, N_test) of held-out films,
+    drawn after everything else, so the other arrays do not depend on
+    ``N_test``."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((M, N, d_z)).astype(np.float32)
     mu_z = rng.standard_normal(d_z).astype(np.float32)
     psi_z = rng.standard_normal(d_z).astype(np.float32)
     z = (mu_z + np.exp(psi_z) * rng.standard_normal((M, d_z))).astype(np.float32)
-    logits = np.einsum("mf,mnf->mn", z, x)
-    obs = (rng.random((M, N)) < 1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
-    return {"x": x, "obs": obs, "mu_z": mu_z, "psi_z": psi_z, "z": z}
+
+    def observe(x):
+        logits = np.einsum("mf,mnf->mn", z, x)
+        return (rng.random(logits.shape) < 1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
+
+    obs = observe(x)
+    x_test = rng.standard_normal((M, N_test, d_z)).astype(np.float32)
+    obs_test = observe(x_test)
+    return {"x": x, "obs": obs, "mu_z": mu_z, "psi_z": psi_z, "z": z,
+            "x_test": x_test, "obs_test": obs_test}
 
 
 def load_data_covariates(seed=0, M=M, N=N, device="cuda"):
@@ -44,6 +57,18 @@ def load_data_covariates(seed=0, M=M, N=N, device="cuda"):
     covariates = {"x": dt_from_numpy(arrays["x"], plates, device)}
     data = {"obs": dt_from_numpy(arrays["obs"], plates, device)}
     return {"plate_1": M, "plate_2": N}, data, covariates
+
+
+def load_all_data_covariates(seed=0, M=M, N=N, N_test=N, device="cuda"):
+    """(all_platesizes, all_data, all_covariates) over the N training films
+    and N_test held-out ones, on ``device``: the extended plates of
+    ``predict.predictive_ll_fn``."""
+    arrays = fake_data(seed, M, N, N_test)
+    plates = ("plate_1", "plate_2")
+    cat = lambda a, b: np.concatenate([arrays[a], arrays[b]], axis=1)
+    covariates = {"x": dt_from_numpy(cat("x", "x_test"), plates, device)}
+    data = {"obs": dt_from_numpy(cat("obs", "obs_test"), plates, device)}
+    return {"plate_1": M, "plate_2": N + N_test}, data, covariates
 
 
 def get_P(platesizes, covariates, device="cuda"):

@@ -1,5 +1,5 @@
-"""The K-contraction engine (counterpart of ``alan_tpu/reduce_ks.py``
-without its sampling passes: reverse replay and FFBS).
+"""The K-contraction engine and its reverse replay (counterpart of
+``alan_tpu/reduce_ks.py`` without FFBS, the timeseries draws).
 
 Summing the K^n combinations of per-latent particles factorises into a
 tensor-network contraction over the named K-dims.  The contraction is
@@ -24,7 +24,8 @@ import os
 
 import torch
 
-from .dims import DT, as_dt, dims_of, logsumexp_dims, unify_dims, check_unique_dims
+from .dims import (DT, as_dt, dims_of, dt_index, logsumexp_dims, unify_dims,
+                   check_unique_dims)
 
 
 def _use_matmul_contract() -> bool:
@@ -150,6 +151,75 @@ def reduce_Ks(lps, Ks_to_sum) -> DT:
     """Sum over ``Ks_to_sum``, returning a single factor."""
     result, _, _ = collect_lps(lps, Ks_to_sum)
     return result
+
+
+def gumbel(shape, like: torch.Tensor, keygen, noise=None) -> torch.Tensor:
+    """Standard Gumbel noise of ``shape`` in ``like``'s dtype and device:
+    the next tensor of the iterator ``noise`` where one is given, else
+    ``-log(-log(U))`` with ``U`` uniform from the traversal's generator,
+    clamped to the smallest normal float as ``jax.random.gumbel`` clamps
+    it."""
+    if noise is not None:
+        try:
+            g = next(noise)
+        except StopIteration:
+            raise ValueError("the injected Gumbel noise ran out before the "
+                             "draws did") from None
+        g = torch.as_tensor(g, dtype=like.dtype, device=like.device)
+        if tuple(g.shape) != tuple(shape):
+            raise ValueError(f"injected Gumbel noise of shape {tuple(g.shape)}, "
+                             f"the draw's is {tuple(shape)}")
+        return g
+    gen = keygen()
+    u = torch.rand(shape, generator=gen, device=gen.device, dtype=like.dtype)
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(like.dtype).tiny)))
+
+
+def sample_Ks(lps, Ks_to_sum, N_dim: str, num_samples: int, keygen,
+              indices: dict | None = None, noise=None) -> dict:
+    """Draw ``num_samples`` joint posterior K-indices by replaying the
+    contraction in reverse.  Returns a dict K-dim name -> integer DT carrying
+    ``N_dim`` (plus plate dims); ``indices`` carries the indices already
+    drawn for other K-dims.
+
+    Each step draws by Gumbel-max: ``argmax(g + logits)`` over the step's
+    joint K-index, ``g`` of shape ``(N, *batch, K1*K2...)`` where the
+    conditional log-weights lack ``N_dim`` and ``(*batch, K1*K2...)`` where
+    they carry it, which is ``jax.random.categorical``'s shape.  ``noise``,
+    an iterator of such tensors in draw order, replaces the generator's."""
+    check_unique_dims(tuple(Ks_to_sum))
+    assert set(unify_dims(lps)).issuperset(Ks_to_sum)
+
+    _, lps_for_sampling, Ks_per_step = collect_lps(lps, Ks_to_sum)
+
+    indices = dict(indices or {})
+    for step_lps, kdims in zip(lps_for_sampling[::-1], Ks_per_step[::-1]):
+        # the replay indexes into the factors: a lazy factored log-prob
+        # (ops/lowrank.LowRankDT) must be dense here
+        step_lps = [lp.materialize() if getattr(lp, "__lazy_dt__", False)
+                    else lp for lp in step_lps]
+        lp = step_lps[0]
+        for x in step_lps[1:]:
+            lp = lp + x
+
+        # condition on the K-dims drawn already
+        for dim in [d for d in dims_of(lp) if d in indices]:
+            lp = dt_index(lp, dim, indices[dim])
+
+        o = lp.order(*kdims)                       # dims rest, pos (k1, k2, ...)
+        flat = o.data.reshape(tuple(o.data.shape[:len(o.dims)]) + (-1,))
+        if N_dim in o.dims:
+            # one draw per (N, plates...) cell
+            idx_dims = o.dims
+        else:
+            flat = flat.expand((num_samples,) + tuple(flat.shape))
+            idx_dims = (N_dim,) + o.dims
+        idx = torch.argmax(gumbel(flat.shape, flat, keygen, noise) + flat, dim=-1)
+
+        sizes = tuple(lp.dim_size(k) for k in kdims)
+        for kdim, u in zip(kdims, torch.unravel_index(idx, sizes)):
+            indices[kdim] = DT(u, idx_dims)
+    return indices
 
 
 def factor_components(factor_dims, elim):

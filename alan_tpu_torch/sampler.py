@@ -1,13 +1,17 @@
 """Proposal samplers: how child particles condition on parent particles
-(counterpart of ``alan_tpu/sampler.py``; this slice ports the default,
-``PermutationSampler``).
+(counterpart of ``alan_tpu/sampler.py``).
 
 Every latent has its own K-dim; when sampling a child from Q, each of the
-child's K particles picks the parent particle it conditions on.
-``PermutationSampler`` permutes the parent particles, so each parent
-particle has exactly one child.  ``reduce_logQ`` then turns the raw Q
-log-prob (which carries parent K-dims) into the mixture-proposal log-prob by
-log-mean-exp over the parent K-dims.
+child's K particles picks the parent particle it conditions on:
+
+* ``PermutationSampler`` permutes the parent particles, so each parent
+  particle has exactly one child (the default);
+* ``CategoricalSampler`` resamples the parents uniformly with replacement;
+* ``IndependentSampler`` is the identity (the non-MP global-K baseline).
+
+``reduce_logQ`` then turns the raw Q log-prob (which carries parent K-dims)
+into the mixture-proposal log-prob by log-mean-exp over the parent K-dims;
+``IndependentSampler``'s leaves it as it is.
 """
 from __future__ import annotations
 
@@ -69,3 +73,31 @@ class PermutationSampler(SamplerMP):
         u = torch.rand(shape, generator=generator, device=generator.device)
         # named dims = plates (leading); the trailing K axis is positional
         return DT(torch.argsort(u, dim=-1), tuple(plate_ds))
+
+
+class CategoricalSampler(SamplerMP):
+    """Resample the parent particles uniformly with replacement: integers
+    drawn from the traversal's generator."""
+
+    @staticmethod
+    def perm(dims, Kdim, dim_sizes, generator) -> DT:
+        plate_ds = [d for d in dims if d != Kdim]
+        K = dim_sizes[Kdim]
+        shape = tuple(dim_sizes[d] for d in plate_ds) + (K,)
+        p = torch.randint(0, K, shape, generator=generator, device=generator.device)
+        return DT(p, tuple(plate_ds))
+
+
+class IndependentSampler(Sampler):
+    """The identity: child particle k conditions on parent particle k."""
+
+    @staticmethod
+    def perm(dims, Kdim, dim_sizes, generator) -> DT:
+        return DT(torch.arange(dim_sizes[Kdim], device=generator.device), ())
+
+    @staticmethod
+    def reduce_logQ(lp: DT, active_platedims, Kdim) -> DT:
+        return lp
+
+
+samplers = [CategoricalSampler, PermutationSampler]

@@ -102,13 +102,41 @@ without its final line:
                 required): 20 ELBO draws must bracket the exact Kalman
                 log-likelihood by the criterion of
                 ``tests/test_problem_vs_itself.py:141-160``; then a profile
-                of two more ELBOs.
+                of two more ELBOs;
+14. grouped_posterior_k1000 -- the posterior of grouped MovieLens at
+                K=1000 (phase 3's model, 5 held-out films beside its 5),
+                read out at the Q state after 5 QEM steps:
+                ``marginals()`` (must launch the lowrank forward and
+                ``MODE_DD``), ``importance_sample(1000)`` (the forward) and
+                ``predict.predictive_ll_fn`` on the 10 films (the forward);
+                ms, peak memory and launches of each, the ESS; gate: the
+                importance samples' mean and mean2 of every latent within
+                6 standard errors of the marginals' (the criterion of
+                ``tests/test_problem_vs_itself.py:99-116``), widened by
+                Bernstein's term for rare particles (12 R / N, R the
+                largest deviation of a particle) and by 1e-5 of the moment
+                for float32 rounding where a marginal is one particle),
+                every output finite; a profile of two more
+                importance samples (run after phase 4);
+15. grouped_posterior_cross_check -- the marginals and the replay's draws
+                from the same particles and Gumbel noise through the kernels
+                and through the dense route: weights within rtol/atol 1e-4
+                (or the f64 rule), draws equal up to near-ties (the share
+                that differs reported), no lowrank launch on the dense
+                route;
+16. is_draws_k30 -- ``bench.py``'s ``bench_is_draws``: ungrouped MovieLens
+                K=30, ``predict.importance_sample_fn`` at N = 100, 1000 and
+                3000: ms per call, draws a second in ``bench.py``'s unit
+                N (2 + M); no hand-written kernel runs on it; a profile at
+                N = 1000; then the same draws on the host's CPU (routes as
+                phase 6), equal up to near-ties (run after phase 6).
 
-Each path (phases 3, 5, 7, 9, 11, 13) is driven with the launch counters
-set to 0 just before it and read just after, and each but the last is
-profiled over two more steps.  Then the ``kernels`` line (the VI path's
-lowrank launches by backward mode and the RWS path's chain launches beside
-the QEM paths'), the card's
+Each path (phases 3, 5, 7, 9, 11, 13, and each call of 14 and 16) is driven
+with the launch counters set to 0 just before it and read just after, and
+each but 13's is profiled over two more steps or calls.  Then the
+``kernels`` line (the VI path's lowrank launches by backward mode, the
+RWS path's chain launches and the posterior calls' lowrank launches
+beside the QEM paths'), the card's
 name and power limit as nvidia-smi prints them, and
 ``{"ok": true, "device": {...}}`` last.
 """
@@ -142,6 +170,10 @@ LR_QEM = 0.1
 FUSED_MAIN = (2, 1000, 1000, 1000)
 FUSED_TOP = (1, 1000, 1000, 1000)
 K_AR1, AR1_ELBOS = 1000, 20
+#: the posterior read-out: grouped MovieLens K=1000 after 5 QEM steps, with
+#: 5 held-out films; importance draws per call; bench_is_draws' N
+POSTERIOR_QEM_STEPS, N_TEST_FILMS, N_DRAWS = 5, 5, 1000
+IS_DRAWS_N = (100, 1000, 3000)
 
 FAILURES = []
 
@@ -937,9 +969,9 @@ def phase_grad_cross_check(phase, problem, state, K, reparam, env, sample=None,
     emit(res)
 
 
-def _movielens_f64():
-    """The same MovieLens problem with its data and covariates in float64:
-    fed float64 opt params, it evaluates the ELBO in float64."""
+def _movielens_f64(Q_param_type="opt"):
+    """The same grouped MovieLens problem with its data and covariates in
+    float64: fed a float64 state, it evaluates the ELBO in float64."""
     import torch
     from alan_tpu_torch.dims import DT
     from alan_tpu_torch.models import movielens as ml
@@ -947,7 +979,7 @@ def _movielens_f64():
     plates = ("plate_1", "plate_2")
     f64 = lambda x: DT(torch.from_numpy(x).double().cuda(), plates)
     return ml.grouped_problem({"plate_1": ml.M, "plate_2": ml.N}, {"obs": f64(a["obs"])},
-                              {"x": f64(a["x"])}, "opt", device="cuda")
+                              {"x": f64(a["x"])}, Q_param_type, device="cuda")
 
 
 def phase_vi_main_path():
@@ -1175,6 +1207,319 @@ def phase_cross_check(phase, problem, step, state, K, env, host_problem=None):
     emit(res)
 
 
+# ---- the posterior read-out (phases 14 to 16) -----------------------------------
+
+def _posterior_sample(problem, state, K, seed):
+    """A ``Sample`` of K particles from Q at ``state`` (drawn with a seeded
+    generator), evaluated at ``state``."""
+    import torch
+    from alan_tpu_torch.sample import Sample
+    from alan_tpu_torch.sampler import PermutationSampler
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tree, gv2K = problem.Q._sample(K, False, PermutationSampler, problem.all_platedims,
+                                   gen, state=state[1])
+    return Sample(problem, tree, gv2K, PermutationSampler, False, states=state)
+
+
+def _driven(fn):
+    """One call of ``fn`` with the launch counters zeroed just before it and
+    read just after, and the peak device memory over it: (result, ms,
+    launches, peak GB)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, read_counts(), torch.cuda.max_memory_allocated() / 1e9
+
+
+def _host_ms(fn, reps=3):
+    """Median host-clock ms of ``reps`` calls, each ending in a synchronise."""
+    import torch
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _all_finite(tensors):
+    import torch
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+def _moments_gate(marg, isamp, varnames, N):
+    """The criterion of ``tests/test_problem_vs_itself.py:99-116``, made to
+    hold for skewed marginals: each importance-sample moment (mean and
+    mean2 of every latent) within 6 standard errors, sqrt(var / N) with the
+    variance from the marginals, of the marginal moment, plus Bernstein's
+    term for draws of rare particles, 12 R / N with R the largest
+    |f - E f| over the particles (the two together fail with probability
+    2 e^-18 a cell), plus 1e-5 of the moment: where a marginal is one
+    particle both estimates are its value up to float32 rounding."""
+    from alan_tpu_torch import moments
+    from alan_tpu_torch.dims import amax_dims
+    worst = worst_6se = 0.0
+    cells = 0
+    for var in varnames:
+        x = marg.samples[var]
+        kdims = tuple(d for d in x.dims if d not in marg.all_platedims)
+        for m in (moments.mean, moments.mean2):
+            mm = marg.moments(var, m)
+            aligned = lambda t: t.with_dims_front(list(mm.dims)).data
+            im = isamp.moments(var, m)
+            six_se = aligned(6 * (marg.moments(var, moments.var_from_raw_moment(m)) / N).sqrt())
+            spread = aligned(amax_dims((m.f(x) - mm).abs(), kdims))
+            dev = aligned(im - mm).abs()
+            worst = max(worst, (dev / (six_se + 12 * spread / N
+                                       + 1e-5 * mm.abs().data)).max().item())
+            worst_6se = max(worst_6se, (dev / six_se).max().item())
+            cells += mm.data.numel()
+    return {"worst_dev_over_band": worst, "worst_dev_over_6se": worst_6se,
+            "cells": cells, "ok": worst <= 1.0}
+
+
+def phase_grouped_posterior_k1000(problem, step):
+    """The posterior of grouped MovieLens at K=1000, full width, read out at
+    the Q state after 5 QEM steps: ``marginals()`` (its source-term backward
+    is the lowrank kernels' forward and ``MODE_DD``),
+    ``importance_sample(1000)`` (the forward, in the contraction the replay
+    reverses) and ``predict.predictive_ll_fn`` on the 5 training and 5
+    held-out films.  Each call driven once with the counters zeroed, then
+    timed over 3 more."""
+    import torch
+    from alan_tpu_torch import predict
+    from alan_tpu_torch.models import movielens as ml
+    phase = "grouped_posterior_k1000"
+    state = (problem.P.state(), problem.Q.state())
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for _ in range(POSTERIOR_QEM_STEPS):
+        state, _ = step(state, gen)
+    s = _posterior_sample(problem, state, K_MAIN, 5)
+    all_ps, all_data, all_cov = ml.load_all_data_covariates(
+        seed=0, M=ml.M, N=ml.N, N_test=N_TEST_FILMS, device="cuda")
+    pll_f = predict.predictive_ll_fn(problem, K_MAIN, N_DRAWS, all_ps)
+    calls = {
+        "marginals": lambda: s.marginals(),
+        "importance_sample": lambda: s.importance_sample(N_DRAWS, gen),
+        "predictive_ll": lambda: pll_f(*state, all_cov, all_data, gen),
+    }
+    res = {"phase": phase, "model": "grouped_movielens", "M": ml.M, "N": ml.N,
+           "N_test": N_TEST_FILMS, "d_z": ml.d_z, "K": K_MAIN, "draws": N_DRAWS,
+           "qem_steps": POSTERIOR_QEM_STEPS, "ok": True}
+    outs, launches = {}, {}
+    for name, fn in calls.items():
+        outs[name], first_ms, launches[name], peak = _driven(fn)
+        res[name] = {"first_call_ms": first_ms, "ms": _host_ms(fn),
+                     "launches": launches[name], "peak_mem_gb": peak}
+    must = {"marginals": ["lowrank_fwd", "lowrank_bwd_dD"],
+            "importance_sample": ["lowrank_fwd"], "predictive_ll": ["lowrank_fwd"]}
+    for name, keys in must.items():
+        missing = [k for k in keys if launches[name][k] < 1]
+        if missing:
+            res["ok"] = False
+            fail(phase, f"{name} did not launch {missing}: {launches[name]}")
+    marg, isamp, pll = outs["marginals"], outs["importance_sample"], outs["predictive_ll"]
+    ess = marg.ess()
+    res["ess"] = {"/".join(sorted(k)): {"min": v.data.min().item(),
+                                        "median": v.data.median().item()}
+                  for k, v in ess.items()}
+    res["min_ess"] = float(marg.min_ess())
+    res["predictive_ll"]["value"] = {k: float(v) for k, v in pll.items()}
+    res["moments_gate"] = _moments_gate(marg, isamp, ["mu_z", "psi_z", "z"], N_DRAWS)
+    finite = _all_finite([w.data for w in marg.weights.values()]
+                         + [v.data for v in isamp.dump().values()] + list(pll.values()))
+    res["finite"] = finite
+    if not res["moments_gate"]["ok"] or not finite:
+        res["ok"] = False
+        fail(phase, f"moments gate {res['moments_gate']}, finite {finite}")
+    emit(res)
+    _profile_step(phase, lambda st, g: (st, s.importance_sample(N_DRAWS, g)), state,
+                  gen, res["importance_sample"]["ms"])
+    return state, launches
+
+
+class _RecordedDraws:
+    """While active, every draw of the reverse replay records its Gumbel
+    noise and the log-weights it perturbs (``reduce_ks.gumbel``)."""
+
+    def __enter__(self):
+        from alan_tpu_torch import reduce_ks
+        self.mod, self.original, self.draws = reduce_ks, reduce_ks.gumbel, []
+
+        def recorded(shape, like, keygen, noise=None):
+            g = self.original(shape, like, keygen, noise)
+            self.draws.append((g, like))
+            return g
+        reduce_ks.gumbel = recorded
+        return self.draws
+
+    def __exit__(self, *a):
+        self.mod.gumbel = self.original
+
+
+def _compare_draws(draws, other, rel=1e-4):
+    """The draws of two routes from the same noise: the share of draws that
+    differ, and whether each that differs is a near-tie (under the first
+    route's log-weights, the two picks' perturbed scores within ``rel``,
+    relative)."""
+    import torch
+    n = differ = 0
+    ties_ok = True
+    for (g, a), (_, b) in zip(draws, other):
+        score = g + a
+        ia = torch.argmax(score, dim=-1, keepdim=True)
+        ib = torch.argmax(g + b, dim=-1, keepdim=True)
+        d = ia != ib
+        n += d.numel()
+        differ += int(d.sum())
+        if d.any():
+            sa, sb = score.gather(-1, ia)[d], score.gather(-1, ib)[d]
+            ties_ok &= bool(((sa - sb).abs() <= rel * sa.abs().clamp(min=1.0)).all())
+    return {"draws": n, "differ": differ, "share_differ": differ / max(n, 1),
+            "differing_are_near_ties": ties_ok,
+            "ok": ties_ok and len(draws) == len(other)}
+
+
+def _double_tree(tree):
+    from alan_tpu_torch.dims import DT
+    return {k: _double_tree(v) if isinstance(v, dict)
+            else (DT(v.data.double(), v.dims) if isinstance(v, DT) else v)
+            for k, v in tree.items()}
+
+
+def phase_grouped_posterior_cross_check(problem, state):
+    """The marginals and the replay's draws from the same particles and the
+    same Gumbel noise through the kernels and through the dense route
+    (``ALAN_TPU_NO_LAZY_LOWRANK=1``, which must launch no lowrank kernel):
+    marginal weights within rtol/atol 1e-4, or by the f64 rule (at least as
+    close as the dense route's to a float64 evaluation of the dense route,
+    and within 1e-4 of it); the draws equal up to near-ties."""
+    import torch
+    from alan_tpu_torch.sample import Sample
+    from alan_tpu_torch.split import no_checkpoint
+    phase = "grouped_posterior_cross_check"
+    s = _posterior_sample(problem, state, K_MAIN, 6)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    with _RecordedDraws() as draws_k:
+        zero_counts()
+        w_k = s.marginals().weights
+        s._importance_sample_idxs(N_DRAWS, no_checkpoint, gen)
+        launches_k = read_counts()
+    os.environ["ALAN_TPU_NO_LAZY_LOWRANK"] = "1"
+    try:
+        with _RecordedDraws() as draws_d:
+            zero_counts()
+            t0 = time.perf_counter()
+            w_d = s.marginals().weights
+            s._importance_sample_idxs(N_DRAWS, no_checkpoint,
+                                      noise=[g for g, _ in draws_k])
+            torch.cuda.synchronize()
+            dense_ms = (time.perf_counter() - t0) * 1e3
+            launches_d = read_counts()
+        exact = None
+        if not all(torch.allclose(w_k[k].data, w_d[k].with_dims_front(list(w_k[k].dims)).data,
+                                  rtol=1e-4, atol=1e-4) for k in w_k):
+            p64 = _movielens_f64("qem")
+            s64 = Sample(p64, _double_tree(s.detached_sample), s.groupvarname2Kdim,
+                         s.sampler, False, states=tuple(_double_tree(x) for x in state))
+            exact = s64.marginals().weights
+    finally:
+        del os.environ["ALAN_TPU_NO_LAZY_LOWRANK"]
+    weights = {}
+    for k, wk in w_k.items():
+        wd = w_d[k].with_dims_front(list(wk.dims)).data
+        close = torch.allclose(wk.data, wd, rtol=1e-4, atol=1e-4)
+        r = {"max_abs_diff": (wk.data - wd).abs().max().item(), "within_tol": close}
+        if exact is not None:
+            e = exact[k].with_dims_front(list(wk.dims)).data
+            r["err_vs_f64"] = (wk.data.double() - e).abs().max().item()
+            r["dense_err_vs_f64"] = (wd.double() - e).abs().max().item()
+            close = close or (r["err_vs_f64"] <= r["dense_err_vs_f64"]
+                              and r["err_vs_f64"] <= 1e-4)
+        r["ok"] = close
+        weights["/".join(sorted(k))] = r
+    draws = _compare_draws(draws_k, draws_d)
+    kernel_ok = launches_k["lowrank_fwd"] >= 2 and launches_k["lowrank_bwd_dD"] >= 1
+    dense_ok = not any(v for k, v in launches_d.items() if k.startswith("lowrank"))
+    res = {"phase": phase, "other_route": {"ALAN_TPU_NO_LAZY_LOWRANK": "1"},
+           "weights": weights, "draws": draws, "launches_kernel_route": launches_k,
+           "launches_dense_route": launches_d, "dense_route_ms_one_call": dense_ms,
+           "ok": (all(r["ok"] for r in weights.values()) and draws["ok"]
+                  and kernel_ok and dense_ok)}
+    if not res["ok"]:
+        fail(phase, f"weights {weights}, draws {draws}, launches {launches_k} / "
+                    f"{launches_d}")
+    emit(res)
+
+
+def phase_is_draws_k30(problem):
+    """``bench.py``'s ``bench_is_draws`` (``bench.py:175-245``): N joint
+    posterior draws per ``predict.importance_sample_fn`` call (Q's K=30
+    particles, the contraction, the reverse replay, the gather) on ungrouped
+    MovieLens at Q's initial state, N = 100, 1000, 3000; ms per call and
+    draws a second in ``bench.py``'s unit, N (2 + M) per call.  No
+    hand-written kernel runs on it.  Then the same draws (particles and
+    noise from the card) on the host's CPU, by the routes of
+    ``movielens_k30_cross_check``: equal up to near-ties."""
+    import torch
+    from alan_tpu_torch import predict
+    from alan_tpu_torch.models import movielens as ml
+    from alan_tpu_torch.sample import Sample
+    from alan_tpu_torch.split import no_checkpoint
+    phase = "is_draws_k30"
+    state = (problem.P.state(), problem.Q.state())
+    res = {"phase": phase, "model": "movielens", "M": ml.M, "N": ml.N, "d_z": ml.d_z,
+           "K": K_HEADLINE, "by_N": {}, "ok": True}
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for n in IS_DRAWS_N:
+        f = predict.importance_sample_fn(problem, K_HEADLINE, n)
+        f(*state, gen)                                   # warm-up
+        out, first_ms, launches, peak = _driven(lambda: f(*state, gen))
+        ms = _host_ms(lambda: f(*state, gen), reps=5)
+        finite = _all_finite([v.data for v in out.values()])
+        res["by_N"][n] = {"ms_per_call": ms, "first_call_ms": first_ms,
+                          "draws_per_s": n * (2 + ml.M) / (ms / 1e3),
+                          "peak_mem_gb": peak, "launches": launches, "finite": finite}
+        if not finite:
+            res["ok"] = False
+            fail(phase, f"non-finite draws at N={n}")
+    emit(res)
+    f = predict.importance_sample_fn(problem, K_HEADLINE, IS_DRAWS_N[1])
+    _profile_step(phase, lambda st, g: (st, f(*st, g)), state, gen,
+                  res["by_N"][IS_DRAWS_N[1]]["ms_per_call"])
+
+    s = _posterior_sample(problem, state, K_HEADLINE, 9)
+    with _RecordedDraws() as draws_card:
+        s._importance_sample_idxs(IS_DRAWS_N[1], no_checkpoint, gen)
+    host = _movielens_k30("cpu")
+    hs = Sample(host, _tree_to(s.detached_sample, "cpu"), s.groupvarname2Kdim,
+                s.sampler, False, states=tuple(_tree_to(x, "cpu") for x in state))
+    env = {"ALAN_TPU_NO_MATMUL_CONTRACT": "1", "ALAN_TPU_NO_LOWRANK_LOGPROB": "1"}
+    os.environ.update(env)
+    try:
+        with _RecordedDraws() as draws_host:
+            t0 = time.perf_counter()
+            hs._importance_sample_idxs(IS_DRAWS_N[1], no_checkpoint,
+                                       noise=[g.cpu() for g, _ in draws_card])
+            host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for k in env:
+            del os.environ[k]
+    draws = _compare_draws([(g.cpu(), a.cpu()) for g, a in draws_card], draws_host)
+    check = {"phase": "is_draws_k30_cross_check", "other_route": env,
+             "other_device": "cpu", "N": IS_DRAWS_N[1], "draws": draws,
+             "host_ms_one_call": host_ms, "ok": draws["ok"]}
+    if not check["ok"]:
+        fail("is_draws_k30_cross_check", f"draws {draws}")
+    emit(check)
+
+
 def nvidia_smi_clocks():
     """The card's SM clock, power draw and power limit, sampled now."""
     out = subprocess.run(
@@ -1212,12 +1557,15 @@ def main():
     problem, step, state, ml_launches = phase_main_path()
     phase_cross_check("cross_check", problem, step, state, K_MAIN,
                       {"ALAN_TPU_NO_LAZY_LOWRANK": "1"})
+    state, post_launches = phase_grouped_posterior_k1000(problem, step)
+    phase_grouped_posterior_cross_check(problem, state)
     del problem, step, state
     problem, step, state = phase_movielens_k30_main_path()
     phase_cross_check("movielens_k30_cross_check", problem, step, state, K_HEADLINE,
                       {"ALAN_TPU_NO_MATMUL_CONTRACT": "1",
                        "ALAN_TPU_NO_LOWRANK_LOGPROB": "1"},
                       host_problem=_movielens_k30("cpu"))
+    phase_is_draws_k30(problem)
     del problem, step, state
     problem, state, vi_launches, vi_modes = phase_vi_main_path()
     phase_grad_cross_check("vi_cross_check", problem, state, K_MAIN, True,
@@ -1241,13 +1589,18 @@ def main():
              source="alan_tpu_torch/csrc/lowrank_lse.cu",
              replaces="alan_tpu/ops/pallas_lowrank.py:215",
              launches=ml_launches["lowrank_fwd"], vi_launches=vi_launches["lowrank_fwd"],
+             posterior_launches={k: v["lowrank_fwd"] for k, v in post_launches.items()},
              library_ms=None, **lowrank["fwd"]),
         dict(name="lowrank_lse_bwd", route="cuda",
              source="alan_tpu_torch/csrc/lowrank_lse.cu",
              replaces="alan_tpu/ops/pallas_lowrank.py:298",
              launches=ml_launches["lowrank_bwd"],
              vi_launches_by_mode={m: vi_launches[f"lowrank_bwd_{m}"] for m in ("dD", "dU", "dV")},
-             vi_device_ms_per_step=vi_modes, library_ms=None, **lowrank["bwd"]),
+             vi_device_ms_per_step=vi_modes,
+             posterior_launches_by_mode={
+                 k: {m: v[f"lowrank_bwd_{m}"] for m in ("dD", "dU", "dV")}
+                 for k, v in post_launches.items()},
+             library_ms=None, **lowrank["bwd"]),
         dict(name="smallk_logmmexp_fwd", route="cuda", source=smallk_src,
              replaces="alan_tpu/ops/pallas_smallk.py:66",
              launches=covid_launches["smallk_fwd"], rws_launches=rws_launches["smallk_fwd"],
