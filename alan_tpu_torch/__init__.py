@@ -10,17 +10,18 @@ explicit ``device="cpu"`` runs on the host.  The hand-written kernels
 
 The port trains by QEM, VI and RWS (``OptParam``s and ``extra_opt_params``
 under ``torch.optim.Adam``) and carries the MovieLens models, the covid
-timeseries model and the ELBO of the AR(1) timeseries model.
+timeseries model and the AR(1) timeseries model.  A Timeseries may stand
+in Q, drawing K particles permuted step by step.
 
 It reads a posterior out: moments (``Sample.moments``; ``mean``, ``var``,
 ``std_from_raw_moment`` and the rest of ``moments``), the marginal weights
 of the particles (``Sample.marginals()``, with their ESS), importance
 samples (``Sample.importance_sample(N, generator)``, by the reverse replay
-of the contraction) and the predictive log-likelihood of held-out data
-(``ImportanceSample.extend(...).predictive_ll(...)``;
-``predict.importance_sample_fn`` and ``predict.predictive_ll_fn`` run the
-whole pipeline).  A plate that holds a Timeseries has no importance samples
-yet: that needs FFBS.
+of the contraction, and a timeseries plate's by forward filtering and
+backward sampling) and the predictive log-likelihood of held-out data
+(``ImportanceSample.extend(...).predictive_ll(...)``, a timeseries rolled
+forward from its last state; ``predict.importance_sample_fn`` and
+``predict.predictive_ll_fn`` run the whole pipeline).
 """
 
 from .dims import DT, dt

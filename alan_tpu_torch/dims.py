@@ -19,7 +19,7 @@ __all__ = [
     "check_unique_dims", "bind", "order", "detach", "expand_to", "align",
     "pos_op", "matmul", "elementwise", "sum_dims", "mean_dims", "prod_dims",
     "amax_dims", "amin_dims", "logsumexp_dims", "logmeanexp_dims", "sum_pos",
-    "dt_index", "slice_dim", "rename_dim",
+    "dt_index", "slice_dim", "concat_dim", "rename_dim",
 ]
 
 
@@ -418,3 +418,14 @@ def slice_dim(x, dim: str, start: int, stop: int) -> DT:
     region of a predictive log-likelihood)."""
     o = as_dt(x).order(dim)
     return bind(DT(o.data.narrow(len(o.dims), start, stop - start), o.dims), dim)
+
+
+def concat_dim(xs: Sequence[DT], dim: str) -> DT:
+    """Concatenate along a named dim; every operand must carry the same
+    other dims (in any order)."""
+    os_ = [as_dt(x).order(dim) for x in xs]
+    ref = os_[0].dims
+    if any(set(o.dims) != set(ref) for o in os_):
+        raise ValueError("concat_dim: mismatched dims")
+    arrs = [o.with_dims_front(ref).data for o in os_]
+    return bind(DT(torch.cat(arrs, dim=len(ref)), ref), dim)

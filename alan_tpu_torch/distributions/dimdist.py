@@ -81,8 +81,10 @@ class DimDist:
                dim_sizes: dict[str, int], sample_shape=(), noise=None) -> DT:
         """Draw with all named dims in ``sample_dims`` on the result;
         ``dim_sizes`` gives sizes for dims not already on the parameters.
-        ``noise``, a DT with the draw's dims and shape, replaces the
-        generator's standard noise of a reparameterised draw."""
+        ``noise``, a DT with the draw's dims and shape (or a tensor laid
+        out as the draw: its new dims, the parameters' dims, then the
+        positional axes), replaces the generator's standard noise of a
+        reparameterised draw."""
         sample_dims = list(sample_dims)
         if len(set(sample_dims)) != len(sample_dims):
             raise ValueError(f"duplicate sample_dims {sample_dims}")
@@ -107,7 +109,7 @@ class DimDist:
             if not self.family.has_rsample:
                 raise ValueError(f"{self.family.name} has no reparameterised draw "
                                  f"to take noise")
-            eps = as_dt(noise)
+            eps = noise if isinstance(noise, DT) else DT(noise, out_dims)
             if set(eps.dims) != set(out_dims):
                 raise ValueError(f"noise dims {eps.dims}, the draw's {out_dims}")
             eps = eps.with_dims_front(list(out_dims)).data

@@ -48,12 +48,14 @@ class ImportanceSample(AbstractImportanceSample):
         self._states = states
 
     def extend(self, extended_platesizes: dict, extended_inputs=None,
-               generator=None):
+               generator=None, noise=None):
         """Enlarge the plates to ``extended_platesizes`` (a plate left out
         keeps its size) and draw what the enlarged plates add from the
         prior, given the importance samples; ``extended_inputs`` are the
         covariates over the enlarged plates.  The prior draws come from
-        ``generator``."""
+        ``generator``; ``noise``, standard-normal tensors in draw order,
+        replaces it for the draws with a reparameterised form (a
+        Timeseries's roll-forward takes one a step)."""
         assert isinstance(extended_platesizes, dict)
         extended_platesizes = dict(extended_platesizes)
         extended_inputs = {k: as_dt(v) for k, v in (extended_inputs or {}).items()}
@@ -70,6 +72,7 @@ class ImportanceSample(AbstractImportanceSample):
                       if self.Ndim in v.dims)
         extended_platesizes = {**extended_platesizes, self.Ndim: N_size}
 
+        noise = None if noise is None else iter(noise)
         extended_sample = self.problem.P.plate.sample_extended(
             sample=self.samples_tree,
             name=None,
@@ -81,7 +84,10 @@ class ImportanceSample(AbstractImportanceSample):
             Ndim=self.Ndim,
             keygen=KeyGen(generator),
             original_data=self.problem.data,
+            noise=noise,
         )
+        if noise is not None and next(noise, None) is not None:
+            raise ValueError("more injected standard-normal noise than draws")
         return ExtendedImportanceSample(self.problem, extended_sample, self.Ndim,
                                         extended_platesizes, extended_inputs,
                                         states=self._states)

@@ -148,17 +148,35 @@ class Dist:
     def filter_scope(self, scope):
         return {k: v for k, v in scope.items() if k in self.all_args}
 
+    def prior_draw(self, scope, keygen, noise, sample_dims, dim_sizes) -> DT:
+        """One draw, not reparameterised, over ``sample_dims``.  Its
+        standard noise is the next tensor of the iterator ``noise`` (laid
+        out as the draw: its new dims, the parameters' dims, then the
+        positional axes) where one is given and the family has a
+        reparameterised form; else the draw takes ``keygen()``'s
+        generator."""
+        tdd = self.tdd(scope)
+        if noise is not None and self.family.has_rsample:
+            eps = next(noise, None)
+            if eps is None:
+                raise ValueError("the injected standard-normal noise ran out "
+                                 "before the draws did")
+            return tdd.sample(None, False, sample_dims, dim_sizes,
+                              sample_shape=self.sample_shape, noise=eps)
+        return tdd.sample(keygen(), False, sample_dims, dim_sizes,
+                          sample_shape=self.sample_shape)
+
     def sample_extended(self, sample, name, scope, inputs_params,
                         original_platedims, extended_platedims,
-                        active_extended_platedims, Ndim, generator,
-                        original_data):
-        """A draw from the prior over the extended plates whose original
-        region holds the posterior sample (a latent) or the training data
-        (a data variable)."""
+                        active_extended_platedims, Ndim, keygen,
+                        original_data, noise=None):
+        """A draw from the prior over the extended plates (``prior_draw``)
+        whose original region holds the posterior sample (a latent) or the
+        training data (a data variable)."""
         original_sample = as_dt(sample if sample is not None else original_data[name])
-        extended = self.tdd(self.filter_scope(scope)).sample(
-            generator, False, [*active_extended_platedims, Ndim],
-            extended_platedims, sample_shape=self.sample_shape)
+        extended = self.prior_draw(self.filter_scope(scope), keygen, noise,
+                                   [*active_extended_platedims, Ndim],
+                                   extended_platedims)
 
         # overwrite the original region (out of place: a copy of the draw)
         shared = [d for d in extended.dims
@@ -190,8 +208,11 @@ class Dist:
 
 def sample_gdt(prog: dict, scope: dict, keygen, active_platedims, K_dim,
                groupvarname2Kdim, dim_sizes, sampler, reparam, noise=None) -> dict:
-    """Sample a group/dist sharing one K-dim; ``noise`` maps a variable
-    name to the standard noise of its reparameterised draw."""
+    """Sample a group/dist/timeseries sharing one K-dim; ``noise`` maps a
+    variable name to the standard noise of its reparameterised draw.  A
+    group that holds a Timeseries with K > 1 particles draws the sampler's
+    permutation over the K-dim and the plates (the timeseries' T among
+    them), which reorders each step's particles before the next step."""
     assert not datagroup(prog)
 
     set_all_args = set(a for dist in prog.values() for a in dist.all_args)
@@ -204,6 +225,12 @@ def sample_gdt(prog: dict, scope: dict, keygen, active_platedims, K_dim,
     scope = {k: v for k, v in scope.items() if k in all_args}
     scope = sampler.resample_scope(scope, active_platedims, K_dim, dim_sizes, keygen)
 
+    timeseries_perm = None
+    if dim_sizes[K_dim] > 1 and any(getattr(d, "is_timeseries", False)
+                                    for d in prog.values()):
+        timeseries_perm = sampler.perm(dims=[K_dim, *active_platedims], Kdim=K_dim,
+                                       dim_sizes=dim_sizes, generator=keygen())
+
     result = {}
     for name, dist in prog.items():
         kw = {}
@@ -212,6 +239,8 @@ def sample_gdt(prog: dict, scope: dict, keygen, active_platedims, K_dim,
                 raise NotImplementedError(
                     f"{name}: only a distribution's draw takes injected noise")
             kw["noise"] = noise[name]
+        if getattr(dist, "is_timeseries", False):
+            kw["timeseries_perm"] = timeseries_perm
         s = dist.sample(scope, None if noise is not None else keygen(), reparam,
                         active_platedims, K_dim, dim_sizes, **kw)
         scope[name] = s

@@ -111,10 +111,13 @@ class Plate:
     # -- prior extension over enlarged plates -------------------------------
     def sample_extended(self, sample, name, scope, inputs_params,
                         original_platedims, extended_platedims,
-                        active_extended_platedims, Ndim, keygen, original_data):
+                        active_extended_platedims, Ndim, keygen, original_data,
+                        noise=None):
         """The importance samples ``sample`` (a tree) with every variable of
         P drawn from the prior over the extended plates, its original
-        region kept (``Dist.sample_extended``); returns a new tree."""
+        region kept (``Dist.sample_extended``); returns a new tree.
+        ``noise``, an iterator of standard-normal tensors in draw order,
+        gives the reparameterisable draws' noise (``Dist.prior_draw``)."""
         if name is not None:
             active_extended_platedims = [*active_extended_platedims, name]
 
@@ -129,15 +132,17 @@ class Plate:
                 extended_platedims=extended_platedims,
                 active_extended_platedims=active_extended_platedims,
                 Ndim=Ndim,
+                keygen=keygen,
+                noise=noise,
             )
             if isinstance(childP, Plate):
                 childsample = childP.sample_extended(
-                    sample=sample.get(childname) or {}, keygen=keygen,
+                    sample=sample.get(childname) or {},
                     original_data=original_data.get(childname, {}), **common)
             else:
                 childsample = childP.sample_extended(
-                    sample=sample.get(childname), generator=keygen(),
-                    original_data=original_data, **common)
+                    sample=sample.get(childname), original_data=original_data,
+                    **common)
             sample[childname] = childsample
             scope = update_scope(scope, {childname: childsample})
         return sample

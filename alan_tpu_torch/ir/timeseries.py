@@ -8,20 +8,23 @@ plate.  ``log_prob`` returns a ``[T, Kinit, K]``-dimmed factor built from
 the lagged sample in one shot; the contraction over T happens in
 ``logpq`` as a chain of log-space matmuls.
 
-``sample`` draws the prior with one particle (``BoundPlate.sample``), as a
-Python loop over T.  Drawing K > 1 particles, which ``alan_tpu`` permutes
-between steps for a timeseries in Q, and ``sample_extended`` /
-``predictive_ll`` (prediction beyond T) are not ported and raise.
+``sample`` draws K particles as a Python loop over T.  In Q, with K > 1,
+the particles of step t are permuted (``sample_gdt``'s per-step
+permutation) before they condition step t + 1, as ``alan_tpu`` does.
+``sample_extended`` rolls the chain forward from the last posterior state
+over an extended T, indexing the extended inputs at the absolute step.
 """
 from __future__ import annotations
 
 import torch
 
-from ..dims import DT, as_dt, bind, expand_to, rename_dim
+from ..dims import DT, as_dt, bind, concat_dim, dt_index, expand_to, rename_dim
+from ..reduce_ks import _index_dim_int
 from .dist import _DistCall
 
 
 class Timeseries:
+    is_timeseries = True
     qem_dist = False
 
     def __init__(self, init, trans):
@@ -47,15 +50,14 @@ class Timeseries:
     def to(self, device):
         self.trans.to(device)
 
-    # -- sampling: the prior, one particle, a loop over T -----------------
+    # -- sampling: a loop over T ----------------------------------------
     def sample(self, scope, generator, reparam, active_platedims, K_dim,
-               dim_sizes) -> DT:
+               dim_sizes, timeseries_perm=None) -> DT:
+        """K particles of the chain; ``timeseries_perm`` (plate dims, T
+        among them, and a positional K axis) permutes step t's particles
+        before they condition step t + 1."""
         assert len(active_platedims) >= 1
         other_platedims, T_dim = active_platedims[:-1], active_platedims[-1]
-        if dim_sizes[K_dim] != 1:
-            raise NotImplementedError(
-                "drawing K > 1 particles of a Timeseries (a timeseries in Q) "
-                "is not ported to alan_tpu_torch yet")
         prev = as_dt(scope[self.init])
         if set(prev.dims) != set([K_dim, *other_platedims]):
             raise Exception(
@@ -63,24 +65,22 @@ class Timeseries:
                 f"timeseries; it must be defined one step up the plate hierarchy "
                 f"(got {prev.dims}, expected {[K_dim, *other_platedims]})")
         carry_dims = prev.dims
-
-        static_scope, scanned = {}, {}
-        for k, v in scope.items():
-            v = as_dt(v)
-            if T_dim in v.dims:
-                scanned[k] = v.order(T_dim)          # (rem..., T, pos...)
-            else:
-                static_scope[k] = v
+        static_scope, scanned = _split_scope(scope, T_dim)
+        perm = None
+        if timeseries_perm is not None and T_dim in timeseries_perm.dims:
+            perm = timeseries_perm.order(T_dim)     # (plates..., T, K)
 
         steps = []
         for t in range(dim_sizes[T_dim]):
-            scope_t = dict(static_scope)
-            for k, o in scanned.items():
-                scope_t[k] = DT(o.data.select(len(o.dims), t), o.dims)
+            scope_t = _scope_at(static_scope, scanned, t)
             scope_t["prev"] = prev
-            prev = self.trans.sample(scope_t, generator, reparam, other_platedims,
-                                     K_dim, dim_sizes).with_dims_front(carry_dims)
-            steps.append(prev.data)
+            s = self.trans.sample(scope_t, generator, reparam, other_platedims,
+                                  K_dim, dim_sizes).with_dims_front(carry_dims)
+            steps.append(s.data)
+            if perm is not None:
+                p = DT(perm.data.select(len(perm.dims), t), perm.dims)
+                s = bind(dt_index(s, K_dim, p), K_dim).with_dims_front(carry_dims)
+            prev = s
         return DT(torch.stack(steps, 0), (T_dim,) + carry_dims)
 
     # -- log prob: lagged tensor, [T, Kinit, K] factor --------------------
@@ -112,12 +112,59 @@ class Timeseries:
         assert Kinit_dim in lpd and K_dim in lpd and T_dim in lpd
         return lp, Kinit_dim
 
-    def sample_extended(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Timeseries.sample_extended is not ported to alan_tpu_torch yet "
-            "(ROADMAP queue 1 item 4)")
+    # -- prior roll-forward beyond T (prediction) -------------------------
+    def sample_extended(self, sample, name, scope, inputs_params,
+                        original_platedims, extended_platedims,
+                        active_extended_platedims, Ndim, keygen, original_data,
+                        noise=None):
+        """Roll the transition forward from the last posterior state over
+        the extended steps, indexing the extended inputs at the absolute
+        step ``orig_T + t``; each step's draw as ``Dist.prior_draw``."""
+        active_plates, T_dim = active_extended_platedims[:-1], active_extended_platedims[-1]
+        orig_T, ext_T = original_platedims[T_dim], extended_platedims[T_dim]
+        sample = as_dt(sample)
+        if ext_T == orig_T:
+            return sample
 
-    def predictive_ll(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Timeseries.predictive_ll is not ported to alan_tpu_torch yet "
-            "(ROADMAP queue 1 item 4)")
+        prev = _index_dim_int(sample, T_dim, orig_T - 1)
+        carry_dims = prev.dims
+        static_scope, scanned = _split_scope(scope, T_dim)
+        steps = []
+        for t in range(orig_T, ext_T):
+            scope_t = _scope_at(static_scope, scanned, t)
+            scope_t["prev"] = prev
+            prev = self.trans.prior_draw(scope_t, keygen, noise,
+                                         [*active_plates, Ndim], extended_platedims
+                                         ).with_dims_front(carry_dims)
+            steps.append(prev.data)
+        so = sample.order(T_dim)
+        old = DT(torch.movedim(so.data, len(so.dims), 0), (T_dim,) + so.dims)
+        return concat_dim([old, DT(torch.stack(steps, 0), (T_dim,) + carry_dims)],
+                          T_dim)
+
+    def predictive_ll(self, sample, name, scope, inputs_params,
+                      original_platedims, extended_platedims,
+                      original_data, extended_data):
+        """A timeseries latent is no data variable: nothing to score."""
+        return {}, {}
+
+
+def _split_scope(scope, T_dim):
+    """(the scope's values without T, {name: value ordered with T the first
+    positional axis} for the values with T)."""
+    static_scope, scanned = {}, {}
+    for k, v in scope.items():
+        v = as_dt(v)
+        if T_dim in v.dims:
+            scanned[k] = v.order(T_dim)             # (rem..., T, pos...)
+        else:
+            static_scope[k] = v
+    return static_scope, scanned
+
+
+def _scope_at(static_scope, scanned, t):
+    """The scope of step ``t``: the values with T taken at ``t``."""
+    scope_t = dict(static_scope)
+    for k, o in scanned.items():
+        scope_t[k] = DT(o.data.select(len(o.dims), t), o.dims)
+    return scope_t

@@ -10,6 +10,7 @@ plate's dim T with log-space matmuls (``ops/logmmexp.py``).
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -78,10 +79,15 @@ def _reduce_timeseries_plate(lps, all_Ks, K_currs, K_inits, name,
     eliminated K-dims (``reduce_ks.factor_components``): independent chains
     contract separately and the per-component results add in log-space.
     Components that hold timeseries groups chain the joint
-    ``[T, prod Ki, prod K]`` operator over T."""
+    ``[T, prod Ki, prod K]`` operator over T.  ``ALAN_TPU_TS_JOINT=1`` (read
+    at every call) forces one component, the joint chain of every group,
+    for equality tests."""
     T_size = all_platedims[name]
-    comps = factor_components([tuple(as_dt(lp).dims) for lp in lps],
-                              set(all_Ks) | set(K_currs))
+    if os.environ.get("ALAN_TPU_TS_JOINT") == "1":
+        comps = [(list(range(len(lps))), set(all_Ks) | set(K_currs))]
+    else:
+        comps = factor_components([tuple(as_dt(lp).dims) for lp in lps],
+                                  set(all_Ks) | set(K_currs))
 
     total = None
     for fidxs, cdims in comps:

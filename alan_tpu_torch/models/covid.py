@@ -142,7 +142,7 @@ def generate_problem(platesizes, data, covariates, Q_param_type="opt",
     if corr_Q:
         raise NotImplementedError(
             "corr_Q needs a MultivariateNormal, not ported to alan_tpu_torch "
-            "yet (ROADMAP queue 1 item 4)")
+            "yet (ROADMAP queue 1 item 6)")
     if Q_param_type not in ("opt", "qem"):
         raise ValueError(f"Q_param_type must be 'opt' or 'qem', not {Q_param_type!r}")
     P = get_P(platesizes, covariates, device)

@@ -129,14 +129,46 @@ without its final line:
                 3000: ms per call, draws a second in ``bench.py``'s unit
                 N (2 + M); no hand-written kernel runs on it; a profile at
                 N = 1000; then the same draws on the host's CPU (routes as
-                phase 6), equal up to near-ties (run after phase 6).
+                phase 6), equal up to near-ties (run after phase 6);
+17. covid_posterior_k30 -- the covid posterior at full size (92 regions x
+                109 training days, extended to 137), K=30, N=100 draws
+                (``examples/runner.py``'s --predll-N), at Q after 5 QEM
+                steps (run after phase 10): ``marginals()`` (must launch the
+                chain kernels' forward and backward),
+                ``importance_sample(100)`` (the forward at the root's and
+                the regions' traversal, then FFBS over the days: one joint
+                route over K_log_infected) and ``predict.predictive_ll_fn``
+                over the 137 days (the forward); ms, peak memory and
+                launches of each, a profile of two importance samples.
+                Gate: the importance moments of InitialSize_log, psi and
+                log_infected against the marginals' (phase 14's rule)
+                where the marginal weights are a distribution (each cell's
+                sum reported: the chain contraction's separately shifted
+                log-matmul underflows on days where consecutive particles
+                lie thousands of nats apart under the transition, and there
+                the day's weights sum to 0); then all three at Q centred on
+                the latents the data were drawn from, where every day's
+                weights must sum to 1;
+18. covid_posterior_cross_check -- the same particles and Gumbel noise
+                through the chain kernels, the dense chain route
+                (``ALAN_TPU_NO_SMALLK_CHAIN=1``, no chain launch) and the
+                host's CPU: the share of draws that differ; each must be a
+                near-tie, in FFBS the first that differs in each chain (the
+                chain's later draws condition on another particle), but in
+                the chains whose root or region draw differs;
+19. ar1_ffbs_k1000 -- AR(1) at K=1000, ``importance_sample(1000)``: the
+                fused log-matmul in the root contraction, FFBS over the 4
+                steps; ms per call and launches; gate: each step's mean of
+                the draws within 6 standard errors (at the marginals' ESS
+                and N) of the Kalman smoother's mean, computed here in
+                numpy.
 
-Each path (phases 3, 5, 7, 9, 11, 13, and each call of 14 and 16) is driven
-with the launch counters set to 0 just before it and read just after, and
-each but 13's is profiled over two more steps or calls.  Then the
-``kernels`` line (the VI path's lowrank launches by backward mode, the
-RWS path's chain launches and the posterior calls' lowrank launches
-beside the QEM paths'), the card's
+Each path (phases 3, 5, 7, 9, 11, 13, and each call of 14, 16, 17 and 19)
+is driven with the launch counters set to 0 just before it and read just
+after, and each but 13's and 19's is profiled over two more steps or
+calls.  Then the ``kernels`` line (the VI path's lowrank launches by
+backward mode, the RWS path's chain launches and the posterior calls'
+lowrank, chain and fused launches beside the QEM paths'), the card's
 name and power limit as nvidia-smi prints them, and
 ``{"ok": true, "device": {...}}`` last.
 """
@@ -174,6 +206,9 @@ K_AR1, AR1_ELBOS = 1000, 20
 #: 5 held-out films; importance draws per call; bench_is_draws' N
 POSTERIOR_QEM_STEPS, N_TEST_FILMS, N_DRAWS = 5, 5, 1000
 IS_DRAWS_N = (100, 1000, 3000)
+#: the covid posterior: N draws a call (``examples/runner.py``'s --predll-N)
+#: and the scale of the Q centred on the data's latents
+N_COVID_DRAWS, COVID_NEAR_TRUTH_SCALE = 100, 0.003
 
 FAILURES = []
 
@@ -1261,20 +1296,25 @@ def _moments_gate(marg, isamp, varnames, N):
     term for draws of rare particles, 12 R / N with R the largest
     |f - E f| over the particles (the two together fail with probability
     2 e^-18 a cell), plus 1e-5 of the moment: where a marginal is one
-    particle both estimates are its value up to float32 rounding."""
+    particle both estimates are its value up to float32 rounding.  The
+    variance is the weighted central moment sum_k w_k (f_k - E f)^2: the
+    raw moments' difference E f^2 - (E f)^2 cancels in float32 (covid's
+    log_infected, ~27 with particles ~0.005 apart, gave 0)."""
     from alan_tpu_torch import moments
-    from alan_tpu_torch.dims import amax_dims
+    from alan_tpu_torch.dims import amax_dims, sum_dims
     worst = worst_6se = 0.0
     cells = 0
     for var in varnames:
         x = marg.samples[var]
         kdims = tuple(d for d in x.dims if d not in marg.all_platedims)
+        w = marg.weights[frozenset([marg.varname2groupvarname[var]])]
         for m in (moments.mean, moments.mean2):
             mm = marg.moments(var, m)
             aligned = lambda t: t.with_dims_front(list(mm.dims)).data
             im = isamp.moments(var, m)
-            six_se = aligned(6 * (marg.moments(var, moments.var_from_raw_moment(m)) / N).sqrt())
-            spread = aligned(amax_dims((m.f(x) - mm).abs(), kdims))
+            dev_k = m.f(x) - mm
+            six_se = aligned(6 * (sum_dims(w * dev_k * dev_k, kdims) / N).sqrt())
+            spread = aligned(amax_dims(dev_k.abs(), kdims))
             dev = aligned(im - mm).abs()
             worst = max(worst, (dev / (six_se + 12 * spread / N
                                        + 1e-5 * mm.abs().data)).max().item())
@@ -1383,6 +1423,57 @@ def _compare_draws(draws, other, rel=1e-4):
             ties_ok &= bool(((sa - sb).abs() <= rel * sa.abs().clamp(min=1.0)).all())
     return {"draws": n, "differ": differ, "share_differ": differ / max(n, 1),
             "differing_are_near_ties": ties_ok,
+            "ok": ties_ok and len(draws) == len(other)}
+
+
+def _excused_chains(idx, other_idx, chain, T_dim):
+    """Per chain of the timeseries group ``chain`` (its index's dims but
+    ``T_dim``, flattened in that order, which is the order of FFBS's draw
+    tensors), whether an index drawn above it differs between two routes'
+    importance indices: such a chain conditions on other particles."""
+    import torch
+    from alan_tpu_torch.dims import DT, expand_to
+    cdims = [d for d in idx[chain].dims if d != T_dim]
+    out = torch.zeros([idx[chain].dim_size(d) for d in cdims], dtype=torch.bool)
+    for g, r in idx.items():
+        if g != chain:
+            o = other_idx[g].with_dims_front(list(r.dims)).data.cpu()
+            out |= expand_to(DT(r.data.cpu() != o, r.dims), cdims)
+    return out.flatten()
+
+
+def _compare_chain_draws(draws, other, rel=1e-4, excused=None):
+    """FFBS's draws of two routes from the same noise, chain by chain (each
+    draw tensor holds one step of every chain, in draw order): the first
+    draw at which a chain's picks differ must be a near-tie (as in
+    ``_compare_draws``, under the first route's log-weights); the chain's
+    later draws condition on another particle, so they are counted but not
+    compared, and so are the chains in ``excused`` (a flat bool per chain:
+    an index drawn above them differs).  Returns the share of draws that
+    differ and the number of chains that diverge."""
+    import torch
+    scores = torch.stack([g + a for g, a in draws])         # (S, *cells, K)
+    S, K = scores.shape[0], scores.shape[-1]
+    scores = scores.reshape(S, -1, K)
+    ia = scores.argmax(-1)
+    ib = torch.stack([(g + b).argmax(-1) for (g, _), (_, b) in zip(draws, other)]
+                     ).reshape(S, -1)
+    d = ia != ib
+    hit = d.any(0)
+    n_excused = 0
+    if excused is not None:
+        excused = excused.to(hit.device)
+        n_excused = int((hit & excused).sum())
+        hit = hit & ~excused
+    cells = hit.nonzero().squeeze(1)
+    first = d.float().argmax(0)[cells]
+    sa = scores[first, cells].gather(-1, ia[first, cells][:, None])
+    sb = scores[first, cells].gather(-1, ib[first, cells][:, None])
+    ties_ok = bool(((sa - sb).abs() <= rel * sa.abs().clamp(min=1.0)).all())
+    return {"draws": d.numel(), "differ": int(d.sum()),
+            "share_differ": int(d.sum()) / d.numel(), "chains": d.shape[1],
+            "chains_diverged": int(hit.sum()) + n_excused,
+            "chains_excused": n_excused, "first_differences_are_near_ties": ties_ok,
             "ok": ties_ok and len(draws) == len(other)}
 
 
@@ -1520,6 +1611,239 @@ def phase_is_draws_k30(problem):
     emit(check)
 
 
+# ---- the timeseries posterior (phases 17 to 19) ----------------------------------
+
+def _weight_sums(marg, gvns):
+    """[min, max] over the cells of each group's marginal weights summed over
+    its particles (1 where the weights are a distribution)."""
+    out = {}
+    for g in gvns:
+        w = marg.weights[frozenset([g])]
+        tot = w.data.sum(0)
+        out[g] = [tot.min().item(), tot.max().item()]
+    return out
+
+
+def _covid_near_truth_state(problem, scale=COVID_NEAR_TRUTH_SCALE):
+    """(P's state, Q's state with every Normal centred on the latent the fake
+    data were drawn with, at scale ``scale``)."""
+    import torch
+    from alan_tpu_torch.dims import DT
+    from alan_tpu_torch.models import covid
+    truth = covid.fake_data(seed=0)
+    nD = problem.all_platedims["nDs"]
+    st = problem.Q.state()
+    qp = {}
+    for k, v in st["qem_params"].items():
+        name, arg = k.rsplit("_", 1)
+        t = torch.as_tensor(truth[name][..., :nD] if name == "log_infected" else truth[name])
+        qp[k] = DT((t if arg == "loc" else torch.full(t.shape, scale)).float().cuda(), v.dims)
+    return (problem.P.state(), {**st, "qem_params": qp})
+
+
+def phase_covid_posterior_k30(problem, step):
+    """The covid posterior at full size (92 regions x 109 training days,
+    extended to 137), K=30, N=100 draws, at Q after 5 QEM steps:
+    ``marginals()`` (the chain kernels' forward and backward),
+    ``importance_sample(100)`` (the forward at the root's and the regions'
+    traversal, then FFBS over the days) and ``predict.predictive_ll_fn``
+    over the 137 days, each driven once with the counters zeroed, then
+    timed over 3 more; a profile of two importance samples.  Gate: the
+    importance moments against the marginals' (``_moments_gate``) of
+    InitialSize_log, psi and log_infected, where the marginal weights are a
+    distribution; the same gate at Q centred on the latents the data came
+    from (scale ``COVID_NEAR_TRUTH_SCALE``), where the chain contraction
+    keeps every day's weights."""
+    import torch
+    from alan_tpu_torch import predict, reduce_ks
+    from alan_tpu_torch.models import covid
+    phase = "covid_posterior_k30"
+    state = (problem.P.state(), problem.Q.state())
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for _ in range(POSTERIOR_QEM_STEPS):
+        state, _ = step(state, gen)
+    s = _posterior_sample(problem, state, K_COVID, 11)
+    _, all_ps, _, all_data, _, all_cov = covid.load_data_covariates(seed=0, device="cuda")
+    pll_f = predict.predictive_ll_fn(problem, K_COVID, N_COVID_DRAWS, all_ps)
+    calls = {
+        "marginals": lambda: s.marginals(),
+        "importance_sample": lambda: s.importance_sample(N_COVID_DRAWS, gen),
+        "predictive_ll": lambda: pll_f(*state, all_cov, all_data, gen),
+    }
+    res = {"phase": phase, "model": "covid", "nRs": all_ps["nRs"],
+           "nDs_train": problem.all_platedims["nDs"], "nDs_all": all_ps["nDs"],
+           "K": K_COVID, "draws": N_COVID_DRAWS, "qem_steps": POSTERIOR_QEM_STEPS,
+           "ok": True}
+    outs, launches = {}, {}
+    for name, fn in calls.items():
+        outs[name], first_ms, launches[name], peak = _driven(fn)
+        if name == "importance_sample":
+            res["ffbs_routes"] = [[r, list(ks)] for r, ks in reduce_ks._ffbs_routes]
+        res[name] = {"first_call_ms": first_ms, "ms": _host_ms(fn),
+                     "launches": launches[name], "peak_mem_gb": peak}
+    must = {"marginals": {"smallk_fwd": 1, "smallk_bwd": 1},
+            "importance_sample": {"smallk_fwd": 2}, "predictive_ll": {"smallk_fwd": 2}}
+    for name, need in must.items():
+        short = {k: launches[name][k] for k, n in need.items() if launches[name][k] < n}
+        if short:
+            res["ok"] = False
+            fail(phase, f"{name} launched too few chain kernels {short}: {launches[name]}")
+    if res["ffbs_routes"] != [["joint", ["K_log_infected"]]]:
+        res["ok"] = False
+        fail(phase, f"FFBS routes {res['ffbs_routes']}")
+    marg, isamp, pll = outs["marginals"], outs["importance_sample"], outs["predictive_ll"]
+    gvn = {"InitialSize_log": "a", "psi": "a", "log_infected": "log_infected"}
+    sums = _weight_sums(marg, set(gvn.values()))
+    res["marginal_weight_sums"] = sums
+    valid = [v for v, g in gvn.items() if abs(sums[g][0] - 1) < 1e-3 and abs(sums[g][1] - 1) < 1e-3]
+    res["min_ess"] = float(marg.min_ess())
+    res["predictive_ll"]["value"] = {k: float(v) for k, v in pll.items()}
+    res["moments_gate"] = {"variables": valid,
+                           **_moments_gate(marg, isamp, valid, N_COVID_DRAWS)}
+    finite = _all_finite([v.data for v in isamp.dump().values()] + list(pll.values()))
+    res["finite"] = finite
+    if not {"InitialSize_log", "psi"} <= set(valid) or not res["moments_gate"]["ok"] \
+            or not finite:
+        res["ok"] = False
+        fail(phase, f"moments gate {res['moments_gate']}, weight sums {sums}, "
+                    f"finite {finite}")
+
+    # the gate where the chain keeps every day's weights
+    near = _covid_near_truth_state(problem)
+    sn = _posterior_sample(problem, near, K_COVID, 12)
+    marg_n = sn.marginals()
+    isamp_n = sn.importance_sample(N_COVID_DRAWS, gen)
+    sums_n = _weight_sums(marg_n, set(gvn.values()))
+    gate_n = _moments_gate(marg_n, isamp_n, list(gvn), N_COVID_DRAWS)
+    res["near_truth"] = {"q_scale": COVID_NEAR_TRUTH_SCALE, "marginal_weight_sums": sums_n,
+                         "min_ess": float(marg_n.min_ess()), "moments_gate": gate_n}
+    if not gate_n["ok"] or any(abs(a - 1) > 1e-3 or abs(b - 1) > 1e-3
+                               for a, b in sums_n.values()):
+        res["ok"] = False
+        fail(phase, f"near-truth gate {gate_n}, weight sums {sums_n}")
+    emit(res)
+    _profile_step(phase, lambda st, g: (st, s.importance_sample(N_COVID_DRAWS, g)),
+                  state, gen, res["importance_sample"]["ms"])
+    return state, launches
+
+
+def phase_covid_posterior_cross_check(problem, state):
+    """The covid importance sample from the same particles and Gumbel noise
+    through the chain kernels, through the dense chain route
+    (``ALAN_TPU_NO_SMALLK_CHAIN=1``, which must launch no chain kernel)
+    and on the host's CPU: the share of draws that differ from the kernel
+    route's.  The root's and the regions' draws must be near-ties where
+    they differ, FFBS's where a chain first differs (``_compare_chain_draws``:
+    the chain's later draws condition on another particle), but in the
+    chains whose root or region index differs."""
+    import torch
+    from alan_tpu_torch.models import covid
+    from alan_tpu_torch.sample import Sample
+    from alan_tpu_torch.split import no_checkpoint
+    phase = "covid_posterior_cross_check"
+    s = _posterior_sample(problem, state, K_COVID, 13)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    with _RecordedDraws() as draws_k:
+        zero_counts()
+        idx_k, _ = s._importance_sample_idxs(N_COVID_DRAWS, no_checkpoint, gen)
+        launches_k = read_counts()
+    noise = [g for g, _ in draws_k]
+    os.environ["ALAN_TPU_NO_SMALLK_CHAIN"] = "1"
+    try:
+        with _RecordedDraws() as draws_d:
+            zero_counts()
+            t0 = time.perf_counter()
+            idx_d, _ = s._importance_sample_idxs(N_COVID_DRAWS, no_checkpoint, noise=noise)
+            torch.cuda.synchronize()
+            dense_ms = (time.perf_counter() - t0) * 1e3
+            launches_d = read_counts()
+    finally:
+        del os.environ["ALAN_TPU_NO_SMALLK_CHAIN"]
+    ps, _, data, _, cov, _ = covid.load_data_covariates(seed=0, device="cpu")
+    host = covid.generate_problem(ps, data, cov, "qem", device="cpu")
+    hs = Sample(host, _tree_to(s.detached_sample, "cpu"), s.groupvarname2Kdim, s.sampler,
+                False, states=tuple(_tree_to(x, "cpu") for x in state))
+    with _RecordedDraws() as draws_h:
+        t0 = time.perf_counter()
+        idx_h, _ = hs._importance_sample_idxs(N_COVID_DRAWS, no_checkpoint,
+                                              noise=[g.cpu() for g in noise])
+        host_ms = (time.perf_counter() - t0) * 1e3
+    n_ffbs = problem.all_platedims["nDs"]
+    cpu = lambda d: [(g.cpu(), a.cpu()) for g, a in d]
+    routes = {"dense": (draws_d, draws_k, idx_d), "host_cpu": (draws_h, cpu(draws_k), idx_h)}
+    res = {"phase": phase, "draws_per_route": len(draws_k), "ffbs_draws_per_route": n_ffbs,
+           "launches_kernel_route": launches_k, "launches_dense_route": launches_d,
+           "dense_route_ms_one_call": dense_ms, "host_ms_one_call": host_ms}
+    ok = launches_k["smallk_fwd"] >= 2 and not (launches_d["smallk_fwd"]
+                                                 or launches_d["smallk_bwd"])
+    for name, (other, ref, idx_o) in routes.items():
+        above = _compare_draws(ref[:-n_ffbs], other[:-n_ffbs])
+        ffbs = _compare_chain_draws(ref[-n_ffbs:], other[-n_ffbs:], excused=_excused_chains(
+            idx_k, idx_o, "log_infected", "nDs"))
+        res[name] = {"root_and_regions": above, "ffbs": ffbs}
+        ok &= above["ok"] and ffbs["ok"]
+    res["ok"] = ok
+    if not ok:
+        fail(phase, f"{res}")
+    emit(res)
+
+
+def _kalman_post_mean(y, T, A, init_scale, ts_noise_scale, obs_noise_scale):
+    """The AR(1) chain's posterior mean given ``y``, Gaussian algebra: prior
+    covariance of the chain, then the posterior precision with the
+    observations' (``tests/model_timeseries.py``'s smoother)."""
+    import numpy as np
+    prior_cov = np.zeros((T, T))
+    diag_var = init_scale ** 2
+    for i in range(T):
+        diag_var = diag_var * A ** 2 + ts_noise_scale ** 2
+        future = diag_var * A ** np.arange(T - i)
+        prior_cov[i, i:] = future
+        prior_cov[i:, i] = future
+    like_prec = np.eye(T) / obs_noise_scale ** 2
+    post_cov = np.linalg.inv(np.linalg.inv(prior_cov) + like_prec)
+    return post_cov @ like_prec @ np.asarray(y, np.float64)
+
+
+def phase_ar1_ffbs_k1000():
+    """AR(1) at K=1000, ``importance_sample(1000)``: the root contraction
+    of the chain runs the fused log-matmul kernel, then FFBS over the 4
+    steps.  Gate: each step's mean of the draws within 6 standard errors,
+    sqrt(var (1 / ESS + 1 / N)) with the marginals' least ESS, of the Kalman
+    smoother's mean."""
+    import numpy as np
+    import torch
+    from alan_tpu_torch import reduce_ks
+    from alan_tpu_torch.models import ar1
+    phase = "ar1_ffbs_k1000"
+    problem = ar1.generate_problem("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    s = problem.sample(K_AR1, gen, reparam=False)
+    fn = lambda: s.importance_sample(K_AR1, gen)
+    fn()                                              # warm-up
+    isamp, first_ms, launches, peak = _driven(fn)
+    routes = [[r, list(ks)] for r, ks in reduce_ks._ffbs_routes]
+    ms = _host_ms(fn)
+    ts = isamp.dump()["ts"].with_dims_front(["T"]).data.double()
+    ess = float(s.marginals().min_ess())
+    mean = ts.mean(1).cpu().numpy()
+    se = torch.sqrt(ts.var(1) * (1 / ess + 1 / K_AR1)).cpu().numpy()
+    kalman = _kalman_post_mean(ar1.data_ts, ar1.T, ar1.A, ar1.init_scale,
+                               ar1.ts_noise_scale, ar1.obs_noise_scale)
+    dev = np.abs(mean - kalman)
+    res = {"phase": phase, "K": K_AR1, "T": ar1.T, "draws": K_AR1, "ms_per_call": ms,
+           "first_call_ms": first_ms, "peak_mem_gb": peak, "launches": launches,
+           "ffbs_routes": routes, "min_ess": ess, "mean": mean.tolist(),
+           "kalman_mean": kalman.tolist(), "dev_over_se": (dev / se).tolist(),
+           "ok": True}
+    if not (np.all(dev < 6 * se) and launches["logmmexp"] >= 2
+            and routes == [["joint", ["K_ts"]]]):
+        res["ok"] = False
+        fail(phase, f"dev/se {dev / se}, launches {launches}, routes {routes}")
+    emit(res)
+    return launches
+
+
 def nvidia_smi_clocks():
     """The card's SM clock, power draw and power limit, sampled now."""
     out = subprocess.run(
@@ -1575,6 +1899,8 @@ def main():
     problem, step, state, covid_launches = phase_covid_main_path()
     phase_cross_check("covid_cross_check", problem, step, state, K_COVID,
                       {"ALAN_TPU_NO_SMALLK_CHAIN": "1"})
+    state, covid_post_launches = phase_covid_posterior_k30(problem, step)
+    phase_covid_posterior_cross_check(problem, state)
     del problem, step, state
     problem, state, rws_launches = phase_covid_rws_path()
     phase_grad_cross_check("covid_rws_cross_check", problem, state, K_COVID, False,
@@ -1582,6 +1908,7 @@ def main():
                            sample=_rws_draws(problem, state, K_COVID))
     del problem, state
     ar1_launches = phase_ar1_large_k()
+    ar1_post_launches = phase_ar1_ffbs_k1000()
 
     smallk_src = "alan_tpu_torch/csrc/smallk_logmmexp.cu"
     emit({"kernels": [
@@ -1604,15 +1931,19 @@ def main():
         dict(name="smallk_logmmexp_fwd", route="cuda", source=smallk_src,
              replaces="alan_tpu/ops/pallas_smallk.py:66",
              launches=covid_launches["smallk_fwd"], rws_launches=rws_launches["smallk_fwd"],
+             posterior_launches={k: v["smallk_fwd"] for k, v in covid_post_launches.items()},
              library_ms=None, **smallk["fwd"]),
         dict(name="smallk_logmmexp_bwd", route="cuda", source=smallk_src,
              replaces="alan_tpu/ops/pallas_smallk.py:80",
              launches=covid_launches["smallk_bwd"], rws_launches=rws_launches["smallk_bwd"],
+             posterior_launches={k: v["smallk_bwd"] for k, v in covid_post_launches.items()},
              library_ms=None, **smallk["bwd"]),
         dict(name="logmmexp_fused", route="cuda",
              source="alan_tpu_torch/csrc/logmmexp.cu",
              replaces="alan_tpu/ops/pallas_logmmexp.py:28",
-             launches=ar1_launches["logmmexp"], library_ms=None, **fused),
+             launches=ar1_launches["logmmexp"],
+             posterior_launches={"importance_sample": ar1_post_launches["logmmexp"]},
+             library_ms=None, **fused),
     ]})
     print(card, flush=True)
     if FAILURES:

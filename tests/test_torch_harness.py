@@ -15,6 +15,7 @@ Data travels between the packages as numpy.  Helpers:
 The port runs on the CPU here (``device="cpu"``).
 """
 import ast
+import contextlib
 import os
 import sys
 
@@ -118,6 +119,104 @@ def port_movielens(arrays, grouped=True, device="cpu"):
     data = {"obs": convert.dt_from_numpy(arrays["obs"], plates, device)}
     build = tml.grouped_problem if grouped else tml.generate_problem
     return build({"plate_1": M, "plate_2": N}, data, cov, device=device)
+
+
+# ---- recording the draws -----------------------------------------------------
+
+def _unrolled_scan(f, init, xs=None, length=None, reverse=False, unroll=1,
+                   **kw):
+    """``jax.lax.scan`` as a Python loop with the same semantics: a draw
+    recorded inside the body stays a value of the traced function, where
+    inside a real scan it would be a tracer of the scan's own trace."""
+    leaves, treedef = jax.tree.flatten(xs)
+    n = length if length is not None else leaves[0].shape[0]
+    carry, ys = init, []
+    for i in (reversed(range(n)) if reverse else range(n)):
+        carry, y = f(carry, jax.tree.unflatten(treedef, [x[i] for x in leaves]))
+        ys.append(y)
+    if reverse:
+        ys = ys[::-1]
+    return carry, jax.tree.map(lambda *a: jnp.stack(a), *ys)
+
+
+def jax_recorded(fn, *args, normals=False):
+    """``jax.jit(fn)(*args)`` (one compiled program: eager JAX compiles every
+    op of the traversal on its own), and every ``jax.random.categorical``
+    call in it recorded: its Gumbel noise, logits and result, as numpy, each
+    checked to be ``argmax(noise + logits)``.  ``jax.lax.scan`` runs
+    unrolled, so draws inside a scan body (FFBS, a timeseries roll-forward)
+    are recorded too.  With ``normals=True`` the standard-normal draws of
+    ``jax.random.normal`` are recorded as well, in order, and returned
+    third."""
+    original = jax.random.categorical
+    original_normal = jax.random.normal
+
+    def traced(*args):
+        draws, gauss = [], []
+
+        def recorded(key, logits, axis=-1, shape=None, **kw):
+            out = original(key, logits, axis=axis, shape=shape, **kw)
+            assert axis == -1
+            batch = tuple(logits.shape[:-1])
+            full = (*(batch if shape is None else tuple(shape)), logits.shape[-1])
+            draws.append((jax.random.gumbel(key, full, logits.dtype), logits, out))
+            return out
+
+        def recorded_normal(key, shape=(), dtype=jnp.float32, *a, **kw):
+            out = original_normal(key, shape, dtype, *a, **kw)
+            gauss.append(out)
+            return out
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax.random, "categorical", recorded)
+            mp.setattr(jax.random, "normal", recorded_normal)
+            mp.setattr(jax.lax, "scan", _unrolled_scan)
+            return fn(*args), draws, gauss
+
+    out, draws, gauss = jax.jit(traced)(*args)
+    draws = [tuple(np.array(x) for x in d) for d in draws]
+    for g, logits, o in draws:
+        assert np.array_equal(np.argmax(g + logits, axis=-1), o), "Gumbel mode differs"
+    if normals:
+        return out, draws, [np.array(x) for x in gauss]
+    return out, draws
+
+
+@contextlib.contextmanager
+def port_draws():
+    """Record, per draw of the port's replay and FFBS, its noise and
+    logits."""
+    from alan_tpu_torch import reduce_ks as treduce
+    draws = []
+    original = treduce.gumbel
+
+    def recorded(shape, like, keygen, noise=None):
+        g = original(shape, like, keygen, noise)
+        draws.append((g, like))
+        return g
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(treduce, "gumbel", recorded)
+        yield draws
+
+
+def assert_same_draws(jd, td, rel=1e-4):
+    """Each port draw equals alan_tpu's, or is a near-tie: the perturbed
+    scores of the two candidates lie within ``rel`` (relative).  Returns
+    the number of near-ties."""
+    assert len(jd) == len(td)
+    ties = 0
+    for (g, logits, jout), (tg, tlogits) in zip(jd, td):
+        tout = torch.argmax(tg + tlogits, dim=-1).numpy()
+        assert tout.shape == jout.shape
+        diff = np.nonzero(tout != jout)
+        if diff[0].size:
+            scores = g + logits
+            a = scores[diff + (jout[diff],)]
+            b = scores[diff + (tout[diff],)]
+            assert np.all(np.abs(a - b) <= rel * np.maximum(1.0, np.abs(a))), (a, b)
+            ties += diff[0].size
+    return ties
 
 
 # ---- the harness's own tests ------------------------------------------------

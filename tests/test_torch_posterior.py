@@ -26,7 +26,6 @@ recorded noise, in the same order, through ``noise=``.
 * (f) ``CategoricalSampler`` draws uniformly, ``IndependentSampler`` is the
   identity, and the ELBO under ``CategoricalSampler`` is ``alan_tpu``'s.
 """
-import contextlib
 import itertools
 
 import jax
@@ -54,7 +53,8 @@ from alan_tpu_torch.models import movielens as tml
 from alan_tpu_torch.ops import lowrank as tlr
 from alan_tpu_torch.sample import Sample
 from alan_tpu_torch.utils import KeyGen
-from test_torch_harness import (Env, PORT_LAZY, assert_dt_close, jax_dt, jax_movielens,
+from test_torch_harness import (Env, PORT_LAZY, assert_dt_close, assert_same_draws,
+                                jax_dt, jax_movielens, jax_recorded, port_draws,
                                 port_movielens, port_np, to_numpy_tree)
 
 M, N_FILMS, K, N = 12, 3, 5, 50
@@ -64,72 +64,6 @@ JAX_FACTORED = dict(ALAN_TPU_LOWRANK_MIN=1, ALAN_TPU_LAZY_LOWRANK_MIN=1 << 40)
 ROUTES = {"ungrouped": (False, {}, {}), "grouped": (True, {}, {}),
           "grouped_lazy": (True, JAX_FACTORED, PORT_LAZY)}
 RTOL, ATOL = 1e-4, 1e-5
-
-
-# ---- recording the draws -----------------------------------------------------
-
-def jax_recorded(fn, *args):
-    """``jax.jit(fn)(*args)`` (one compiled program: eager JAX compiles every
-    op of the traversal on its own), and every ``jax.random.categorical``
-    call in it recorded: its Gumbel noise, logits and result, as numpy, each
-    checked to be ``argmax(noise + logits)``."""
-    original = jax.random.categorical
-
-    def traced(*args):
-        draws = []
-
-        def recorded(key, logits, axis=-1, shape=None, **kw):
-            out = original(key, logits, axis=axis, shape=shape, **kw)
-            assert axis == -1
-            batch = tuple(logits.shape[:-1])
-            full = (*(batch if shape is None else tuple(shape)), logits.shape[-1])
-            draws.append((jax.random.gumbel(key, full, logits.dtype), logits, out))
-            return out
-
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(jax.random, "categorical", recorded)
-            return fn(*args), draws
-
-    out, draws = jax.jit(traced)(*args)
-    draws = [tuple(np.array(x) for x in d) for d in draws]
-    for g, logits, o in draws:
-        assert np.array_equal(np.argmax(g + logits, axis=-1), o), "Gumbel mode differs"
-    return out, draws
-
-
-@contextlib.contextmanager
-def port_draws():
-    """Record, per draw of the port's replay, its noise and logits."""
-    draws = []
-    original = treduce.gumbel
-
-    def recorded(shape, like, keygen, noise=None):
-        g = original(shape, like, keygen, noise)
-        draws.append((g, like))
-        return g
-
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(treduce, "gumbel", recorded)
-        yield draws
-
-
-def assert_same_draws(jd, td, rel=1e-4):
-    """Each port draw equals alan_tpu's, or is a near-tie: the perturbed
-    scores of the two candidates lie within ``rel`` (relative).  Returns
-    the number of near-ties."""
-    assert len(jd) == len(td)
-    ties = 0
-    for (g, logits, jout), (tg, tlogits) in zip(jd, td):
-        tout = torch.argmax(tg + tlogits, dim=-1).numpy()
-        assert tout.shape == jout.shape
-        diff = np.nonzero(tout != jout)
-        if diff[0].size:
-            scores = g + logits
-            a = scores[diff + (jout[diff],)]
-            b = scores[diff + (tout[diff],)]
-            assert np.all(np.abs(a - b) <= rel * np.maximum(1.0, np.abs(a))), (a, b)
-            ties += diff[0].size
-    return ties
 
 
 # ---- the MovieLens case --------------------------------------------------------
@@ -382,12 +316,22 @@ def test_importance_sample_fn_and_draw_errors():
 
 
 def test_timeseries_importance_sample_raises():
-    """A plate that holds a Timeseries needs FFBS: it raises, it does not
-    draw."""
+    """A plate that holds a Timeseries draws by FFBS (one joint route for
+    AR(1)'s chain): its draws take injected Gumbel noise in draw order, the
+    root's first, then the chain's last step and the steps T-2 down to 0,
+    and the replay raises when that noise runs out or is left over."""
     prob = tar1.generate_problem("cpu")
     s = prob.sample(3, torch.Generator().manual_seed(0), reparam=False)
-    with pytest.raises(NotImplementedError, match="FFBS"):
-        s.importance_sample(10, torch.Generator().manual_seed(1))
+    with port_draws() as draws:
+        isamp = s.importance_sample(10, torch.Generator().manual_seed(1))
+    assert treduce._ffbs_routes == [("joint", ("K_ts",))]
+    assert [tuple(g.shape) for g, _ in draws] == [(10, 3)] * (1 + tar1.T)
+    assert set(isamp.dump()["ts"].dims) == {"T", "N"}
+    noise = [g for g, _ in draws]
+    with pytest.raises(ValueError, match="ran out"):
+        s.importance_sample(10, noise=noise[:-1])
+    with pytest.raises(ValueError, match="more injected"):
+        s.importance_sample(10, noise=noise + noise[:1])
 
 
 # ---- (e) the zoo oracles ---------------------------------------------------------

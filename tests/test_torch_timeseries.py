@@ -114,13 +114,24 @@ def test_timeseries_structure_checks():
 
 
 def test_timeseries_q_draws_and_prediction_raise():
-    ts = Timeseries("init", Normal(lambda prev: prev, 1.0))
-    with pytest.raises(NotImplementedError):
-        ts.sample({"init": None}, None, False, ["T"], "K_ts", {"T": 3, "K_ts": 4})
-    with pytest.raises(NotImplementedError):
-        ts.sample_extended()
+    """The guards that stay now that K > 1 draws and the roll-forward are
+    ported: the init must be named by a string, the transition must be a
+    distribution without sample_shape, an init outside the parent plate
+    raises at the draw, and covid's corr_Q (a MultivariateNormal) raises."""
     with pytest.raises(Exception, match="string"):
         Timeseries(3, Normal(0, 1))
+    with pytest.raises(Exception, match="distribution"):
+        Timeseries("init", 0.5)
+    with pytest.raises(Exception, match="sample_shape"):
+        Timeseries("init", Normal(0, 1, sample_shape=[2]))
+    ts = Timeseries("init", Normal(lambda prev: prev, 1.0))
+    bad_init = convert.dt_from_numpy(np.zeros((4, 3), np.float32), ("K_ts", "T"), "cpu")
+    with pytest.raises(Exception, match="one step up"):
+        ts.sample({"init": bad_init}, torch.Generator(), False, ["T"], "K_ts",
+                  {"T": 3, "K_ts": 4})
+    ps, _, data, _, cov, _ = tcovid.load_data_covariates(1, nRs=2, nDs=5, device="cpu")
+    with pytest.raises(NotImplementedError, match="MultivariateNormal"):
+        tcovid.generate_problem(ps, data, cov, corr_Q=True, device="cpu")
 
 
 # ---- factor_components --------------------------------------------------------
