@@ -9,8 +9,13 @@ explicit ``device="cpu"`` runs on the host.  The hand-written kernels
 ``alan_tpu_torch/_native/``.
 
 The port trains by QEM, VI and RWS (``OptParam``s and ``extra_opt_params``
-under ``torch.optim.Adam``) and carries the MovieLens models, the covid
-timeseries model and the AR(1) timeseries model.  A Timeseries may stand
+under ``torch.optim.Adam``), and by their global-K (non-MP, IWAE-style)
+baselines (``train.global_vi`` / ``global_rws`` / ``global_qem``,
+``Problem.sample_nonmp``, ``SampleNonMP``).  ``train.scan_steps`` and
+``train.vmap_runs`` run a loop of steps, and independent runs, as CUDA
+graphs replayed on the card (the eager loop on the CPU).  It carries the
+MovieLens models, the covid timeseries model and the AR(1) timeseries
+model.  A Timeseries may stand
 in Q, drawing K particles permuted step by step.
 
 It reads a posterior out: moments (``Sample.moments``; ``mean``, ``var``,
@@ -27,11 +32,12 @@ forward from its last state; ``predict.importance_sample_fn`` and
 from .dims import DT, dt
 from .bound import BoundPlate, named
 from .ir import (Plate, Group, Data, Timeseries, OptParam, QEMParam, Normal,
-                 Bernoulli, NegativeBinomial)
+                 Bernoulli, NegativeBinomial, Beta)
 from .sampler import (PermutationSampler, CategoricalSampler, IndependentSampler,
                       samplers)
 from .problem import Problem
 from .sample import Sample
+from .sample_nonmp import SampleNonMP
 from .marginals import Marginals
 from .importance import ImportanceSample, ExtendedImportanceSample
 from .moments import (RawMoment, CompoundMoment, mean, mean2, mean_log, mean_log1m,
@@ -43,9 +49,9 @@ from . import train, convert, predict
 __all__ = [
     "DT", "dt", "named", "Plate", "BoundPlate", "Problem", "Group", "Data",
     "Timeseries", "OptParam", "QEMParam", "Normal", "Bernoulli",
-    "NegativeBinomial",
+    "NegativeBinomial", "Beta",
     "PermutationSampler", "CategoricalSampler", "IndependentSampler",
-    "samplers", "Sample", "Marginals", "ImportanceSample",
+    "samplers", "Sample", "SampleNonMP", "Marginals", "ImportanceSample",
     "ExtendedImportanceSample", "RawMoment", "CompoundMoment", "mean",
     "mean2", "mean_log", "mean_log1m", "mean_recip", "mean_xxT", "var",
     "cov_x", "var_from_raw_moment", "std_from_raw_moment", "no_checkpoint",

@@ -218,6 +218,10 @@ class BoundPlate:
         return {"opt": dict(state["opt"]), "qem_params": new_params,
                 "qem_means": new_means}
 
+    def _update_qem_params(self, lr, sample, computation_strategy):
+        """``_updated_qem_state`` written into this BoundPlate's state."""
+        self._state = self._updated_qem_state(lr, sample, computation_strategy)
+
     # ---- sampling --------------------------------------------------------
     def _sample(self, K: int, reparam: bool, sampler, all_platedims: dict,
                 generator, state=None, noise=None):

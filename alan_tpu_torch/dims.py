@@ -200,6 +200,17 @@ def order(x, ds) -> DT:
     return as_dt(x).order(*ds)
 
 
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """``t`` on ``device``.  A host tensor of one element (a number made a
+    tensor, perhaps reshaped) becomes a fill on the card, not a copy: a
+    CUDA graph's capture refuses a copy from pageable host memory."""
+    device = torch.device(device)
+    if (t.device.type == "cpu" and device.type != "cpu" and t.numel() == 1
+            and not t.requires_grad):
+        return torch.full(t.shape, t.item(), dtype=t.dtype, device=device)
+    return t.to(device)
+
+
 def detach(x):
     if isinstance(x, DT):
         return DT(x.data.detach(), x.dims)

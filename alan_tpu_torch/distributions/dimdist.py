@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from ..dims import DT, as_dt, unify_dims, expand_to, sum_pos
+from ..dims import DT, as_dt, unify_dims, expand_to, sum_pos, to_device
 from .families import Family
 
 
@@ -31,7 +31,7 @@ class DimDist:
         device = next((v.data.device for v in self.params.values()
                        if v.data.device.type != "cpu"), None)
         if device is not None:
-            self.params = {k: DT(v.data.to(device), v.dims)
+            self.params = {k: DT(to_device(v.data, device), v.dims)
                            for k, v in self.params.items()}
         self.arg_dims = tuple(unify_dims(self.params.values()))
 
@@ -70,7 +70,7 @@ class DimDist:
         out = {}
         nd = len(self.arg_dims)
         for k, v in self.params.items():
-            a = expand_to(v, self.arg_dims).to(device)
+            a = to_device(expand_to(v, self.arg_dims), device)
             pad = n_pad + (self.batch_ndim - self._batch_ndims[k])
             if pad > 0:
                 a = a.reshape(tuple(a.shape[:nd]) + (1,) * pad + tuple(a.shape[nd:]))
@@ -153,7 +153,7 @@ class DimDist:
         x_arr = expand_to(x, union)
         params = {}
         for k, v in self.params.items():
-            a = expand_to(v, union).to(x_arr.device)
+            a = to_device(expand_to(v, union), x_arr.device)
             pad = sample_ndim + (self.batch_ndim - self._batch_ndims[k])
             if pad > 0:
                 a = a.reshape(tuple(a.shape[:nu]) + (1,) * pad + tuple(a.shape[nu:]))

@@ -1,6 +1,7 @@
 """Distribution families in plain torch (counterpart of
 ``alan_tpu/distributions/families.py``).  The port carries the families
-its models use: Normal and Bernoulli (MovieLens), NegativeBinomial (covid).
+its models use: Normal and Bernoulli (MovieLens), NegativeBinomial (covid),
+and Beta (the Beta-Bernoulli oracle of the global-K baseline).
 
 Every family declares:
   - ``args``: ordered parameter signature (name -> default), so positional
@@ -154,4 +155,30 @@ class NegativeBinomial(Family):
                 + torch.xlogy(r, 1.0 - probs) + torch.xlogy(x, probs))
 
 
-FAMILIES = {f.name: f for f in [Normal, Bernoulli, NegativeBinomial]}
+class Beta(Family):
+    name = "Beta"
+    args = (("concentration1", None), ("concentration0", None))
+    arg_event_ndim = {"concentration1": 0, "concentration0": 0}
+    support = "unit_interval"
+
+    @classmethod
+    def sample(cls, generator, shape, p):
+        # X / (X + Y) of two unit-rate gammas; ``_standard_gamma`` is
+        # differentiable in its concentration (implicit reparameterisation),
+        # so the draw is reparameterised without a standard noise of its own
+        a, b = (torch.broadcast_to(torch.as_tensor(p[k], dtype=torch.float32,
+                                                   device=generator.device), shape)
+                .contiguous() for k in ("concentration1", "concentration0"))
+        x = torch._standard_gamma(a, generator=generator)
+        y = torch._standard_gamma(b, generator=generator)
+        eps = torch.finfo(torch.float32).eps
+        return torch.clamp(x / (x + y), min=torch.finfo(torch.float32).tiny, max=1.0 - eps)
+
+    @classmethod
+    def log_prob(cls, x, p):
+        a, b = p["concentration1"], p["concentration0"]
+        return (torch.xlogy(a - 1.0, x) + torch.xlogy(b - 1.0, 1.0 - x)
+                - (torch.lgamma(a) + torch.lgamma(b) - torch.lgamma(a + b)))
+
+
+FAMILIES = {f.name: f for f in [Normal, Bernoulli, NegativeBinomial, Beta]}

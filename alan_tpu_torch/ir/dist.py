@@ -256,3 +256,4 @@ _dist_calls: dict[str, type] = {
 Normal = _dist_calls["Normal"]
 Bernoulli = _dist_calls["Bernoulli"]
 NegativeBinomial = _dist_calls["NegativeBinomial"]
+Beta = _dist_calls["Beta"]

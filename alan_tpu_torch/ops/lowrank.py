@@ -237,7 +237,9 @@ class LowRankDT:
         if isinstance(o, (int, float)):
             if o == 0:
                 return self
-            o = DT(torch.tensor(float(o), device=self.U.data.device), ())
+            # a fill on the card, not a host tensor copied there: a CUDA
+            # graph's capture refuses a copy from pageable host memory
+            o = DT(torch.full((), float(o), device=self.U.data.device), ())
         elif isinstance(o, DT):
             if o.pos_ndim != 0:
                 return None

@@ -6,8 +6,9 @@ from .dims import DT, as_dt, dims_of
 from .bound import BoundPlate
 from .ir.plate import tensordict2tree
 from .ir.checking import check_PQ_plate, check_inputs_params
-from .sampler import PermutationSampler
+from .sampler import IndependentSampler, PermutationSampler
 from .sample import Sample
+from .sample_nonmp import SampleNonMP
 from .utils import resolve_device
 
 
@@ -57,6 +58,14 @@ class Problem:
         return Sample(problem=self, sample=sample,
                       groupvarname2Kdim=groupvarname2Kdim,
                       sampler=sampler, reparam=reparam)
+
+    def sample_nonmp(self, K: int, generator, reparam: bool = True) -> SampleNonMP:
+        """The global single-K (IWAE-style) baseline: K joint particles
+        drawn from Q with ``IndependentSampler`` and ``generator``."""
+        sample, groupvarname2Kdim = self.Q._sample(K, reparam, IndependentSampler,
+                                                   self.all_platedims, generator)
+        return SampleNonMP(problem=self, sample=sample,
+                           groupvarname2Kdim=groupvarname2Kdim, reparam=reparam)
 
     def inputs_params(self, stateP=None, stateQ=None):
         flat = {**self.P.inputs_params_flat_named(stateP),

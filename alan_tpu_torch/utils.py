@@ -118,3 +118,16 @@ class KeyGen:
 
 def seeded_generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=torch.device(device)).manual_seed(int(seed))
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_seed(seed: int, i: int) -> int:
+    """A seed for the ``i``-th stream of draws under ``seed``: the
+    SplitMix64 finaliser of both, cut to 63 bits (the port's stand-in for
+    ``jax.random.fold_in``; the two never give equal bits)."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + (int(i) + 1) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1

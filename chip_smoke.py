@@ -161,18 +161,55 @@ without its final line:
                 steps; ms per call and launches; gate: each step's mean of
                 the draws within 6 standard errors (at the marginals' ESS
                 and N) of the Kalman smoother's mean, computed here in
-                numpy.
+                numpy;
+20. scan_grouped_k1000 -- ``train.scan_steps`` (one step captured as a CUDA
+                graph, replayed with no host dispatch) of phase 3's QEM step
+                and phase 7's VI step, 5 and 20 steps (run after phase 15);
+21. scan_headline_k30 -- ``bench.py``'s mode: ``scan_steps`` of phase 5's
+                step, 20 and 80 steps; ms/step by ``bench.py``'s slope rule
+                (the median of the positive slopes between the two lengths),
+                samples a second in its unit, the capture's seconds;
+22. vmap_runs_k30 -- ``bench_scaling.grid_throughput``'s shape:
+                ``train.vmap_runs`` of phase 5's step, R = 1, 4 and 8 runs of
+                20 (and 80) steps, each run its own graph on its own
+                stream: ms/iter and ms/run-iter; gate: row r equals
+                ``scan_steps`` from run r's generator (1e-5 relative), rows
+                0 and 1 differ;
+23. global_k30 -- ``train.global_vi``, ``global_rws`` and ``global_qem`` on
+                the K=30 headline model (its opt Q for the first two), 5
+                steps each, eager and through ``scan_steps``; then
+                ``nonmp_moments_streaming`` at 2^16 particles in chunks of
+                2^12 against one global softmax over the same chunks (ELBO
+                1e-5 relative, moments within 1e-5 of their largest entry);
+24. scan_covid_k30 -- ``scan_steps`` of phase 9's step, 5 and 20 steps
+                (run after phase 18);
+25. scan_ar1_k1000 -- 20 and 80 AR(1) ELBOs at K=1000 as a captured loop (a
+                step that keeps its state and returns ``train.elbo_fn``'s
+                ELBO): phase 13's Kalman bracket on the graphed draws.
+                In phases 20, 21, 23, 24 and 25 every ELBO of the graphed
+                loop lies within 1e-5 relative of the eager loop's from a
+                generator of the same seed, the final state within
+                rtol/atol 1e-4, and the two generators end alike; the
+                launch counters are read around the capture (a wrapper
+                counts where it launches, and inside a capture the launch
+                is recorded into the graph), which gives the launches of
+                each replay: QEM the lowrank forward and ``MODE_DD``, VI
+                ``MODE_DU`` and ``MODE_DV``, covid 3 + 3 chain launches,
+                AR(1) 2 fused launches; a profile of one call's replays
+                (device busy, idle share) must show those kernels' names.
 
 Each path (phases 3, 5, 7, 9, 11, 13, and each call of 14, 16, 17 and 19)
 is driven with the launch counters set to 0 just before it and read just
 after, and each but 13's and 19's is profiled over two more steps or
 calls.  Then the ``kernels`` line (the VI path's lowrank launches by
 backward mode, the RWS path's chain launches and the posterior calls'
-lowrank, chain and fused launches beside the QEM paths'), the card's
-name and power limit as nvidia-smi prints them, and
+lowrank, chain and fused launches beside the QEM paths', and
+``graph_launches``: each captured path's launches per replay and its
+replays), the card's name and power limit as nvidia-smi prints them, and
 ``{"ok": true, "device": {...}}`` last.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1085,11 +1122,26 @@ def phase_covid_main_path():
     return problem, step, state, launches
 
 
+def _kalman_bracket(e):
+    """(min, max, ok) of the criterion of tests/test_problem_vs_itself.py
+    on ELBO draws of the AR(1) model: the mean of the draws, widened by 6
+    standard errors and by half the (widened) variance, must bracket its
+    exact Kalman log-likelihood, within a gap of 1 nat."""
+    import numpy as np
+    from alan_tpu_torch.models import ar1
+    e = np.asarray(e, dtype=np.float64)
+    n = len(e)
+    mean, var = e.mean(), e.var(ddof=1)
+    se_mean, se_var = np.sqrt(var / n), np.sqrt(2 * var ** 2 / n)
+    hi = mean + 6 * se_mean + (var + 6 * se_var) / 2
+    lo = mean - 6 * se_mean
+    return float(lo), float(hi), bool(_finite(e) and lo < ar1.known_elbo < hi
+                                      and hi - lo < 1.0)
+
+
 def phase_ar1_large_k():
     """ELBO draws of the AR(1) model at K=1000 against its exact Kalman
-    log-likelihood, by the criterion of tests/test_problem_vs_itself.py:
-    the mean of the draws, widened by 6 standard errors and by half the
-    (widened) variance, must bracket it, within a gap of 1 nat."""
+    log-likelihood (``_kalman_bracket``)."""
     import numpy as np
     import torch
     from alan_tpu_torch.models import ar1
@@ -1106,18 +1158,13 @@ def phase_ar1_large_k():
     ms = (time.perf_counter() - t0) / AR1_ELBOS * 1e3
     launches = read_counts()
     e = np.array(draws)
-    n = len(e)
-    mean, var = e.mean(), e.var(ddof=1)
-    se_mean, se_var = np.sqrt(var / n), np.sqrt(2 * var ** 2 / n)
-    max_elbo = mean + 6 * se_mean + (var + 6 * se_var) / 2
-    min_elbo = mean - 6 * se_mean
-    res = {"phase": "ar1_large_k", "K": K_AR1, "T": ar1.T, "draws": n,
+    min_elbo, max_elbo, bracketed = _kalman_bracket(e)
+    res = {"phase": "ar1_large_k", "K": K_AR1, "T": ar1.T, "draws": len(e),
            "ms_per_elbo": ms, "known_elbo": ar1.known_elbo,
            "elbo_min": float(e.min()), "elbo_max": float(e.max()),
-           "elbo_mean": float(mean), "bracket": [float(min_elbo), float(max_elbo)],
+           "elbo_mean": float(e.mean()), "bracket": [min_elbo, max_elbo],
            "launches": launches, "ok": True}
-    if not (_finite(e) and min_elbo < ar1.known_elbo < max_elbo
-            and max_elbo - min_elbo < 1.0):
+    if not bracketed:
         res["ok"] = False
         fail("ar1_large_k", f"ELBO bracket {min_elbo, max_elbo} vs exact "
                             f"{ar1.known_elbo}")
@@ -1844,6 +1891,388 @@ def phase_ar1_ffbs_k1000():
     return launches
 
 
+# ---- the captured loop (phases 20 to 25) -------------------------------------------
+
+#: bench.py's scan lengths (``N_STEPS`` and 4 N_STEPS) for the K=30 headline
+#: and bench_scaling.grid_throughput's R; the shorter paths' lengths
+SCAN_SHORT, SCAN_LONG = 20, 80
+SCAN_GROUPED = (5, 20)
+SCAN_COVID_STEPS, SCAN_AR1_STEPS, GLOBAL_STEPS = 5, 20, 5
+VMAP_RS = (1, 4, 8)
+#: nonmp_moments_streaming's particles and chunk
+STREAM_K, STREAM_CHUNK = 1 << 16, 1 << 12
+
+
+class _CountedCaptures:
+    """While active, every CUDA graph capture zeroes the launch counters as
+    it begins and records them as it ends.  A wrapper counts where it
+    launches its kernel, and inside a capture that launch is recorded into
+    the graph: the count of a capture is the launches of each replay."""
+
+    def __init__(self):
+        self.records = []
+
+    def __enter__(self):
+        import torch
+        self.original = original = torch.cuda.graph
+        records = self.records
+
+        class counted(original):
+            def __enter__(self):
+                zero_counts()
+                return super().__enter__()
+
+            def __exit__(self, *args):
+                out = super().__exit__(*args)
+                records.append(read_counts())
+                return out
+        torch.cuda.graph = counted
+        return self
+
+    def __exit__(self, *args):
+        import torch
+        torch.cuda.graph = self.original
+
+
+def _state_compare(a, b, rtol=1e-4, atol=1e-4):
+    """(all within rtol/atol, largest abs difference) of two states leaf by
+    leaf, the constants of their specs equal."""
+    import torch
+    from alan_tpu_torch import train
+    la, sa = train._flatten(a)
+    lb, sb = train._flatten(b)
+    if sa != sb:
+        return False, float("inf")
+    ok, worst = True, 0.0
+    for x, y in zip(la, lb):
+        x, y = x.double(), y.double()
+        worst = max(worst, (x - y).abs().max().item() if x.numel() else 0.0)
+        ok = ok and torch.allclose(x, y, rtol=rtol, atol=atol)
+    return ok, worst
+
+
+def _rel_diff(got, want):
+    import torch
+    got, want = torch.as_tensor(got).double().cpu(), torch.as_tensor(want).double().cpu()
+    return ((got - want).abs() / want.abs().clamp(min=1e-30)).max().item()
+
+
+def _scan_vs_eager(phase, step, state0, n, seed=5):
+    """``n`` eager steps and ``scan_steps(step, n)`` from generators of one
+    seed: each ELBO within 1e-5 relative, the final states within
+    rtol/atol 1e-4, the two generators advanced alike.  Returns (run, the
+    launches of each replay, the comparison's fields, peak GB of the
+    captured call)."""
+    import torch
+    from alan_tpu_torch import train
+    g_e = torch.Generator(device="cuda").manual_seed(seed)
+    st_e, el_e = train._eager(step, n, state0, g_e)
+    torch.cuda.synchronize()
+    run = train.scan_steps(step, n)
+    g_g = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.reset_peak_memory_stats()
+    with _CountedCaptures() as cap:
+        st_g, el_g = run(state0, g_g)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rel = _rel_diff(el_g, el_e)
+    state_ok, state_diff = _state_compare(st_g, st_e)
+    same_gen = bool(torch.equal(g_e.get_state(), g_g.get_state()))
+    fields = {"n_steps": n, "elbos_graph": el_g.tolist(), "elbos_eager": el_e.tolist(),
+              "elbo_max_rel_diff": rel, "state_max_abs_diff": state_diff,
+              "generators_equal": same_gen, "capture_s": run.capture_seconds,
+              "captures": len(cap.records)}
+    ok = (rel <= 1e-5 and state_ok and same_gen and _finite(el_g.tolist())
+          and len(cap.records) == 1)
+    if not ok:
+        fail(phase, f"graphed against eager: {fields}")
+    return run, (cap.records[0] if cap.records else {}), fields, peak, ok, st_g
+
+
+def _slope_ms(run_short, run_long, state0, seed=5):
+    """``bench.py``'s rule (``bench.py:69-95``): the ms of one step is the
+    slope between a short and a long call, each ended by a synchronise,
+    the median of the positive slopes (up to 3 rounds of 3)."""
+    import torch
+    n_s, n_l = run_short.n_steps, run_long.n_steps
+    for run in (run_short, run_long):          # captured and warm
+        run(state0, torch.Generator(device="cuda").manual_seed(seed))
+    capture_long = run_long.capture_seconds
+    dts, pos = [], []
+    for _ in range(3):
+        for _ in range(3):
+            t = {}
+            for n, run in ((n_s, run_short), (n_l, run_long)):
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run(state0, g)
+                torch.cuda.synchronize()
+                t[n] = time.perf_counter() - t0
+            dts.append((t[n_l] - t[n_s]) / (n_l - n_s) * 1e3)
+        pos = [d for d in dts if d > 0]
+        if len(pos) >= 2:
+            break
+    return (statistics.median(pos) if pos else float("nan")), dts, capture_long
+
+
+#: kernel names in the profiler's rows that show each counter's kernel ran
+#: inside a replay
+KERNEL_NAMES = {"lowrank_fwd": "lse_tc_kernel", "lowrank_bwd_dD": "lse_tc_kernel",
+                "lowrank_bwd_dU": "lse_tc_kernel", "lowrank_bwd_dV": "lse_bwd_dv_reduce",
+                "smallk_fwd": "segment_fwd_kernel", "smallk_bwd": "segment_bwd_kernel",
+                "logmmexp": "logmmexp_product_kernel"}
+
+
+def _profile_run(phase, run, state0, ms_per_step, must_launch):
+    """A profile of one call of ``run`` (its replays): device busy and idle
+    share per step, and the calls of each kernel that ``must_launch`` names
+    (``KERNEL_NAMES``), which must appear in the replays."""
+    import torch
+    n = run.n_steps
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    prof = _profile_step(f"{phase}_replay", lambda st, g: run(st, g), state0, gen,
+                         ms_per_step * n)
+    calls = {}
+    for _, key, count in prof["rows"]:
+        for name in {KERNEL_NAMES[k] for k in must_launch}:
+            if name in key:
+                calls[name] = calls.get(name, 0) + count
+    missing = [k for k in must_launch if calls.get(KERNEL_NAMES[k], 0) < 2 * n]
+    if missing:
+        fail(phase, f"kernels {missing} not in the profiled replays: {calls}")
+    return {"device_busy_ms_per_step": prof["device_busy_ms"] / prof["steps"] / n,
+            "device_idle_share_unprofiled": prof["device_idle_share_unprofiled"],
+            "profiled_kernel_calls": calls, "profiled_steps": prof["steps"] * n}
+
+
+def _scan_phase(phase, step, state0, n_short, n_long, must_launch, info,
+                per_replay=None, gate=None):
+    """A captured training path: graphed against eager over ``n_short``
+    steps (``_scan_vs_eager``), the launches of each replay (each kernel of
+    ``must_launch`` at least once, or exactly ``per_replay``), ms/step by
+    the slope rule over ``n_short`` and ``n_long`` steps (and the seconds
+    the long loop's capture took), a profiled call.
+    Returns (result line, launches of each replay)."""
+    import torch
+    from alan_tpu_torch import train
+    run_s, launches, fields, peak, ok, st_g = _scan_vs_eager(phase, step, state0, n_short)
+    if per_replay is not None:
+        bad = {k: launches.get(k) for k, v in per_replay.items() if launches.get(k) != v}
+    else:
+        bad = {k: launches.get(k) for k in must_launch if launches.get(k, 0) < 1}
+    if bad:
+        ok = False
+        fail(phase, f"launches per replay {launches}, wanted {per_replay or must_launch}")
+    if gate is not None:
+        ok = gate(fields, st_g) and ok
+    run_l = train.scan_steps(step, n_long)
+    ms, slopes, capture_long = _slope_ms(run_s, run_l, state0)
+    prof = _profile_run(phase, run_s, state0, ms, must_launch)
+    res = {"phase": phase, **info, "ms_per_step": ms, "slopes_ms": slopes,
+           "capture_s": fields.pop("capture_s"),
+           "capture_s_long": capture_long, "peak_mem_gb": peak,
+           "launches_per_replay": {k: v for k, v in launches.items() if v},
+           "replays": n_short, **prof, **fields, "ok": ok}
+    emit(res)
+    del run_s, run_l
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def phase_scan_headline_k30(problem):
+    """``bench.py``'s mode: ``train.scan_steps`` of the ungrouped MovieLens
+    QEM step at K=30, 20 and 80 steps."""
+    from alan_tpu_torch import train
+    from alan_tpu_torch.models import movielens as ml
+    step, state0 = train.qem(problem, K_HEADLINE, lr=LR_QEM)
+    res, _ = _scan_phase("scan_headline_k30", step, state0, SCAN_SHORT, SCAN_LONG, [],
+                         {"model": "movielens", "K": K_HEADLINE, "M": ml.M, "N": ml.N})
+    emit({"phase": "scan_headline_k30", "summary": True, "ms_per_step": res["ms_per_step"],
+          "samples_per_s": K_HEADLINE * (2 + ml.M) / (res["ms_per_step"] / 1e3),
+          "capture_s": res["capture_s"], "device_busy_ms_per_step":
+              res["device_busy_ms_per_step"],
+          "device_idle_share_unprofiled": res["device_idle_share_unprofiled"],
+          "peak_mem_gb": res["peak_mem_gb"]})
+    return res
+
+
+def phase_scan_grouped_k1000(problem):
+    """Grouped MovieLens at K=1000, QEM and VI, 5 and 20 steps captured:
+    QEM replays the lowrank forward and ``MODE_DD``, VI ``MODE_DU`` and
+    ``MODE_DV``, in every step."""
+    from alan_tpu_torch import train
+    from alan_tpu_torch.models import movielens as ml
+    step, state0 = train.qem(problem, K_MAIN, lr=LR_QEM)
+    qem, qem_l = _scan_phase("scan_grouped_k1000_qem", step, state0, *SCAN_GROUPED,
+                             ["lowrank_fwd", "lowrank_bwd_dD"],
+                             {"model": "grouped_movielens", "method": "qem", "K": K_MAIN})
+    ps, data, cov = ml.load_data_covariates(seed=0, M=ml.M, N=ml.N, device="cuda")
+    opt_problem = ml.grouped_problem(ps, data, cov, "opt", device="cuda")
+    step, state0 = train.vi(opt_problem, K_MAIN, lr=0.01)
+    vi, vi_l = _scan_phase("scan_grouped_k1000_vi", step, state0, *SCAN_GROUPED,
+                           ["lowrank_fwd", "lowrank_bwd_dU", "lowrank_bwd_dV"],
+                           {"model": "grouped_movielens_opt", "method": "vi", "K": K_MAIN})
+    return {"scan_grouped_k1000_qem": (qem_l, qem["replays"]),
+            "scan_grouped_k1000_vi": (vi_l, vi["replays"])}
+
+
+def phase_scan_covid_k30(problem):
+    """Covid QEM at full size, K=30, 5 steps captured: 3 forward and 3
+    backward chain launches in each replay."""
+    from alan_tpu_torch import train
+    step, state0 = train.qem(problem, K_COVID, lr=LR_QEM)
+    res, launches = _scan_phase("scan_covid_k30", step, state0, SCAN_COVID_STEPS,
+                                4 * SCAN_COVID_STEPS, ["smallk_fwd", "smallk_bwd"],
+                                {"model": "covid", "K": K_COVID},
+                                per_replay={"smallk_fwd": 3, "smallk_bwd": 3})
+    return {"scan_covid_k30": (launches, res["replays"])}
+
+
+def phase_scan_ar1_k1000():
+    """20 AR(1) ELBOs at K=1000 as a captured loop (a step that keeps its
+    state and returns ``elbo_fn``'s ELBO): 2 fused launches each, and the
+    graphed draws bracket the exact Kalman log-likelihood."""
+    from alan_tpu_torch import train
+    from alan_tpu_torch.models import ar1
+    problem = ar1.generate_problem("cuda")
+    f = train.elbo_fn(problem, K_AR1, reparam=False)
+
+    def step(state, generator):
+        return state, f(state[0], state[1], generator).detach()
+
+    def bracket(fields, _):
+        lo, hi, ok = _kalman_bracket(fields["elbos_graph"])
+        fields.update(bracket=[lo, hi], known_elbo=ar1.known_elbo)
+        if not ok:
+            fail("scan_ar1_k1000", f"ELBO bracket {lo, hi} vs exact {ar1.known_elbo}")
+        return ok
+
+    res, launches = _scan_phase("scan_ar1_k1000", step,
+                                (problem.P.state(), problem.Q.state()),
+                                SCAN_AR1_STEPS, 4 * SCAN_AR1_STEPS, ["logmmexp"],
+                                {"model": "ar1", "K": K_AR1}, per_replay={"logmmexp": 2},
+                                gate=bracket)
+    return {"scan_ar1_k1000": (launches, res["replays"])}
+
+
+def phase_vmap_runs_k30(problem):
+    """``bench_scaling.grid_throughput``'s shape: the K=30 headline, R = 1, 4
+    and 8 runs of 20 (and 80) steps through ``train.vmap_runs``: ms/iter
+    and ms/run-iter by the slope rule; row r equals ``scan_steps`` from run
+    r's generator (1e-5 relative), rows 0 and 1 differ."""
+    import torch
+    from alan_tpu_torch import train
+    phase = "vmap_runs_k30"
+    step, state0 = train.qem(problem, K_HEADLINE, lr=LR_QEM)
+    seed, n = 11, SCAN_SHORT
+    single = train.scan_steps(step, n)
+    out, ok = {}, True
+    for R in VMAP_RS:
+        runs = {m: train.vmap_runs(step, m, R) for m in (n, 4 * n)}
+        states, elbos = runs[n](state0, seed)
+        runs[4 * n](state0, seed)
+        torch.cuda.synchronize()
+        capture = runs[n].capture_seconds + runs[4 * n].capture_seconds
+        rows = []
+        for r in range(R):
+            _, e = single(state0, train.run_generator(seed, r, "cuda"))
+            rows.append(_rel_diff(elbos[r], e))
+        distinct = R < 2 or not torch.allclose(elbos[0], elbos[1])
+        best = None
+        for _ in range(3):
+            t = {}
+            for m, many in runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                many(state0, seed)
+                torch.cuda.synchronize()
+                t[m] = time.perf_counter() - t0
+            dt = (t[4 * n] - t[n]) / (3 * n) * 1e3
+            best = dt if best is None else min(best, dt)
+        row_ok = max(rows) <= 1e-5 and distinct and tuple(elbos.shape) == (R, n)
+        ok = ok and row_ok
+        if not row_ok:
+            fail(phase, f"R={R}: rows against scan_steps {rows}, distinct {distinct}")
+        out[f"R{R}"] = {"ms_per_iter": best, "ms_per_run_iter": best / R,
+                        "capture_s": capture,
+                        "row_max_rel_diff": max(rows), "rows_distinct": distinct}
+        del runs, states
+        torch.cuda.empty_cache()
+    emit({"phase": phase, "K": K_HEADLINE, "n_steps": n, **out, "ok": ok})
+
+
+def phase_global_k30(problem):
+    """``global_vi``, ``global_rws`` and ``global_qem`` on the K=30
+    headline model, 5 steps each, eager and through ``scan_steps``; then
+    ``nonmp_moments_streaming`` at 2^16 particles in chunks of 2^12 against
+    one global softmax over the same chunks."""
+    import torch
+    from alan_tpu_torch import mean, train
+    from alan_tpu_torch.dims import as_dt
+    from alan_tpu_torch.models import movielens as ml
+    from alan_tpu_torch.ir.plate import flatten_tree
+    from alan_tpu_torch.sample_nonmp import nonmp_moments_streaming
+    from alan_tpu_torch.utils import fold_seed, seeded_generator
+    phase = "global_k30"
+    ps, data, cov = ml.load_data_covariates(seed=0, M=ml.M, N=ml.N, device="cuda")
+    opt_problem = ml.generate_problem(ps, data, cov, "opt", device="cuda")
+    res, ok = {"phase": phase, "K": K_HEADLINE}, True
+    for method, prob in (("global_vi", opt_problem), ("global_rws", opt_problem),
+                         ("global_qem", problem)):
+        step, state0 = getattr(train, method)(prob, K_HEADLINE)
+        run, _, fields, peak, m_ok, _ = _scan_vs_eager(phase, step, state0, GLOBAL_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(state0, torch.Generator(device="cuda").manual_seed(5))
+        torch.cuda.synchronize()
+        fields["graphed_ms_per_step"] = (time.perf_counter() - t0) / GLOBAL_STEPS * 1e3
+        t0 = time.perf_counter()
+        train._eager(step, GLOBAL_STEPS, state0, torch.Generator(device="cuda").manual_seed(5))
+        torch.cuda.synchronize()
+        fields["eager_ms_per_step"] = (time.perf_counter() - t0) / GLOBAL_STEPS * 1e3
+        res[method] = {**fields, "peak_mem_gb": peak}
+        ok = ok and m_ok
+        del run
+    # streaming against one global softmax over the same chunks
+    moms = [("mu_z", mean), ("z", mean)]
+    seed = 13
+    t0 = time.perf_counter()
+    got, elbo = nonmp_moments_streaming(problem, STREAM_K, STREAM_CHUNK, moms, seed)
+    torch.cuda.synchronize()
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    os_, fs, rest = [], [[] for _ in moms], [None] * len(moms)
+    with torch.no_grad():
+        for c in range(STREAM_K // STREAM_CHUNK):
+            s = problem.sample_nonmp(STREAM_CHUNK, seeded_generator(fold_seed(seed, c), "cuda"),
+                                     reparam=False)
+            os_.append(s.logpq(s.detached_sample).order(s.Kdim).data)
+            flat = flatten_tree(s.detached_sample)
+            for i, (vn, m) in enumerate(moms):
+                f = as_dt(m.f(flat[vn])).with_dims_front([s.Kdim])
+                fs[i].append(f.data)
+                rest[i] = list(f.dims[1:])
+        o = torch.cat(os_)
+        w = torch.softmax(o, dim=0)
+        ref_elbo = torch.logsumexp(o, 0) - math.log(o.numel())
+        diffs = []
+        for i, g in enumerate(got):
+            ref = torch.tensordot(w, torch.cat(fs[i]), dims=([0], [0]))
+            d = (g.with_dims_front(rest[i]).data - ref).abs().max().item()
+            diffs.append(d / ref.abs().max().clamp(min=1e-30).item())
+    elbo_rel = _rel_diff(elbo, ref_elbo)
+    s_ok = max(diffs) <= 1e-5 and elbo_rel <= 1e-5
+    res["streaming"] = {"K_total": STREAM_K, "chunk": STREAM_CHUNK, "ms": stream_ms,
+                        "elbo": float(elbo), "elbo_rel_diff": elbo_rel,
+                        "moment_max_diff_rel_to_max": diffs,
+                        "ess": float(1.0 / (w * w).sum())}
+    if not s_ok:
+        fail(phase, f"streaming against one softmax: {res['streaming']}")
+    res["ok"] = ok and s_ok
+    emit(res)
+    torch.cuda.empty_cache()
+
+
 def nvidia_smi_clocks():
     """The card's SM clock, power draw and power limit, sampled now."""
     out = subprocess.run(
@@ -1883,6 +2312,7 @@ def main():
                       {"ALAN_TPU_NO_LAZY_LOWRANK": "1"})
     state, post_launches = phase_grouped_posterior_k1000(problem, step)
     phase_grouped_posterior_cross_check(problem, state)
+    graph_launches = phase_scan_grouped_k1000(problem)
     del problem, step, state
     problem, step, state = phase_movielens_k30_main_path()
     phase_cross_check("movielens_k30_cross_check", problem, step, state, K_HEADLINE,
@@ -1890,6 +2320,9 @@ def main():
                        "ALAN_TPU_NO_LOWRANK_LOGPROB": "1"},
                       host_problem=_movielens_k30("cpu"))
     phase_is_draws_k30(problem)
+    phase_scan_headline_k30(problem)
+    phase_vmap_runs_k30(problem)
+    phase_global_k30(problem)
     del problem, step, state
     problem, state, vi_launches, vi_modes = phase_vi_main_path()
     phase_grad_cross_check("vi_cross_check", problem, state, K_MAIN, True,
@@ -1901,6 +2334,7 @@ def main():
                       {"ALAN_TPU_NO_SMALLK_CHAIN": "1"})
     state, covid_post_launches = phase_covid_posterior_k30(problem, step)
     phase_covid_posterior_cross_check(problem, state)
+    graph_launches.update(phase_scan_covid_k30(problem))
     del problem, step, state
     problem, state, rws_launches = phase_covid_rws_path()
     phase_grad_cross_check("covid_rws_cross_check", problem, state, K_COVID, False,
@@ -1909,6 +2343,14 @@ def main():
     del problem, state
     ar1_launches = phase_ar1_large_k()
     ar1_post_launches = phase_ar1_ffbs_k1000()
+    graph_launches.update(phase_scan_ar1_k1000())
+
+    def graphed(key):
+        """Each captured path's launches of one counter: per replay, and
+        the replays of the path's checked call."""
+        return {path: {"per_replay": launches[key], "replays": replays}
+                for path, (launches, replays) in graph_launches.items()
+                if launches.get(key)}
 
     smallk_src = "alan_tpu_torch/csrc/smallk_logmmexp.cu"
     emit({"kernels": [
@@ -1917,6 +2359,7 @@ def main():
              replaces="alan_tpu/ops/pallas_lowrank.py:215",
              launches=ml_launches["lowrank_fwd"], vi_launches=vi_launches["lowrank_fwd"],
              posterior_launches={k: v["lowrank_fwd"] for k, v in post_launches.items()},
+             graph_launches=graphed("lowrank_fwd"),
              library_ms=None, **lowrank["fwd"]),
         dict(name="lowrank_lse_bwd", route="cuda",
              source="alan_tpu_torch/csrc/lowrank_lse.cu",
@@ -1927,22 +2370,26 @@ def main():
              posterior_launches_by_mode={
                  k: {m: v[f"lowrank_bwd_{m}"] for m in ("dD", "dU", "dV")}
                  for k, v in post_launches.items()},
+             graph_launches={m: graphed(f"lowrank_bwd_{m}") for m in ("dD", "dU", "dV")},
              library_ms=None, **lowrank["bwd"]),
         dict(name="smallk_logmmexp_fwd", route="cuda", source=smallk_src,
              replaces="alan_tpu/ops/pallas_smallk.py:66",
              launches=covid_launches["smallk_fwd"], rws_launches=rws_launches["smallk_fwd"],
              posterior_launches={k: v["smallk_fwd"] for k, v in covid_post_launches.items()},
+             graph_launches=graphed("smallk_fwd"),
              library_ms=None, **smallk["fwd"]),
         dict(name="smallk_logmmexp_bwd", route="cuda", source=smallk_src,
              replaces="alan_tpu/ops/pallas_smallk.py:80",
              launches=covid_launches["smallk_bwd"], rws_launches=rws_launches["smallk_bwd"],
              posterior_launches={k: v["smallk_bwd"] for k, v in covid_post_launches.items()},
+             graph_launches=graphed("smallk_bwd"),
              library_ms=None, **smallk["bwd"]),
         dict(name="logmmexp_fused", route="cuda",
              source="alan_tpu_torch/csrc/logmmexp.cu",
              replaces="alan_tpu/ops/pallas_logmmexp.py:28",
              launches=ar1_launches["logmmexp"],
              posterior_launches={"importance_sample": ar1_post_launches["logmmexp"]},
+             graph_launches=graphed("logmmexp"),
              library_ms=None, **fused),
     ]})
     print(card, flush=True)

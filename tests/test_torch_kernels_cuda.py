@@ -32,7 +32,11 @@ and no JAX it runs without the suite's conftest:
 * the fused log-matmul kernel against ``reference_logmmexp``: both levels
   of the AR(1) chain at K = 1000 ((2, 1000, 1000) and batch 1), a ragged
   shape, -inf rows and sums of products in [e^-80, e^-78], rtol/atol 1e-5;
-  its pre-pass bitwise against ``reference_prepass``.
+  its pre-pass bitwise against ``reference_prepass``;
+* ``train.scan_steps`` (a captured CUDA graph) against the eager loop on
+  small grouped MovieLens, QEM and VI through the lowrank kernels, and
+  ``vmap_runs``'s rows against it; an optimizer that cannot be captured is
+  refused.
 """
 import numpy as np
 import pytest
@@ -393,3 +397,65 @@ def test_fused_prepass_is_its_plain_version(card, shape):
         want = tlk.reference_prepass(A, B, bn)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+# ---- the captured loop ----------------------------------------------------------
+
+@pytest.mark.parametrize("method", ["qem", "vi"])
+def test_scan_steps_graph_matches_eager_loop(card, monkeypatch, method):
+    """``scan_steps`` on the card (a captured CUDA graph, replayed) against
+    the eager loop from a generator of the same seed, on small grouped
+    MovieLens through the lowrank kernels: every ELBO within 1e-5
+    relative, the final state within rtol/atol 1e-4, the generators
+    advanced alike; a second call replays without capturing; each row of
+    ``vmap_runs`` equals ``scan_steps`` from its run's generator."""
+    monkeypatch.setenv("ALAN_TPU_LOWRANK_MIN", "1")
+    monkeypatch.setenv("ALAN_TPU_LAZY_LOWRANK", "1")
+    K, n = 30, 4
+    ps, data, cov = tml.load_data_covariates(seed=3, M=20, N=5, device=card)
+    qtype = "qem" if method == "qem" else "opt"
+    prob = tml.grouped_problem(ps, data, cov, qtype, device=card)
+    step, state0 = getattr(train, method)(prob, K, device=card)
+    g_e, g_s = (torch.Generator(device=card).manual_seed(7) for _ in range(2))
+    st_e, el_e = state0, []
+    for _ in range(n):
+        st_e, e = step(st_e, g_e)
+        el_e.append(e)
+    el_e = torch.stack(el_e)
+    run = train.scan_steps(step, n)
+    launches = tk.FWD_LAUNCHES
+    st_s, el_s = run(state0, g_s)
+    assert tk.FWD_LAUNCHES > launches and run.capture_seconds > 0
+    torch.testing.assert_close(el_s, el_e, rtol=1e-5, atol=0)
+    assert torch.equal(g_e.get_state(), g_s.get_state())
+    for x, y in zip(train._flatten(st_s)[0], train._flatten(st_e)[0]):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+    launches = tk.FWD_LAUNCHES
+    _, el_again = run(state0, torch.Generator(device=card).manual_seed(7))
+    assert tk.FWD_LAUNCHES == launches and run.capture_seconds == 0.0
+    torch.testing.assert_close(el_again, el_s, rtol=0, atol=0)
+    # three steps a graph: one replay of it, and a graph of one for the rest
+    _, el_unrolled = train.scan_steps(step, n, unroll=3)(
+        state0, torch.Generator(device=card).manual_seed(7))
+    torch.testing.assert_close(el_unrolled, el_e, rtol=1e-5, atol=0)
+    _, rows = train.vmap_runs(step, n, 2)(state0, 3)
+    for r in range(2):
+        _, e = run(state0, train.run_generator(3, r, card))
+        torch.testing.assert_close(rows[r], e, rtol=1e-5, atol=0)
+    assert not torch.allclose(rows[0], rows[1])
+
+
+@pytest.mark.parametrize("optimizer,match", [
+    # its step count on the host
+    (lambda p: torch.optim.Adam(p, lr=0.01), "capturable=False"),
+    # its momentum built at its first step: step 0 changes the state's structure
+    (lambda p: torch.optim.SGD(p, lr=0.01, momentum=0.9), "structure"),
+])
+def test_scan_steps_refuses_an_uncapturable_optimizer(card, optimizer, match):
+    """An optimizer whose state a graph cannot carry from replay to replay:
+    ``scan_steps`` raises on the card, and runs no eager loop."""
+    ps, data, cov = tml.load_data_covariates(seed=3, M=20, N=5, device=card)
+    prob = tml.grouped_problem(ps, data, cov, "opt", device=card)
+    step, state0 = train.vi(prob, 10, device=card, optimizer=optimizer)
+    with pytest.raises(ValueError, match=match):
+        train.scan_steps(step, 2)(state0, torch.Generator(device=card).manual_seed(0))

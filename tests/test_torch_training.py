@@ -344,15 +344,6 @@ def test_sample_elbo_forms():
 
 # ---- fit ------------------------------------------------------------------------------
 
-def test_fit_refuses_what_is_not_ported():
-    _, tprob = conjugate()
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        train.fit(tprob, "vi", K=2, iters=1, fuse_iters=True, device="cpu")
-    for method in ("global_vi", "global_rws", "global_qem"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            train.fit(tprob, method, K=2, iters=1, device="cpu")
-
-
 def test_vi_converges_to_posterior():
     prob = conjugate()[1]
     d = _conjugate_data()
