@@ -8,15 +8,18 @@ explicit ``device="cpu"`` runs on the host.  The hand-written kernels
 (``csrc/``) and the native planner build at first use into
 ``alan_tpu_torch/_native/``.
 
-The port trains by QEM, VI and RWS (``OptParam``s and ``extra_opt_params``
-under ``torch.optim.Adam``), and by their global-K (non-MP, IWAE-style)
+It carries every distribution family of ``alan_tpu`` (35), their QEM
+conversions and the factored low-rank forms of six of them.  The port
+trains by QEM, VI and RWS (``OptParam``s and ``extra_opt_params`` under
+``torch.optim.Adam``), and by their global-K (non-MP, IWAE-style)
 baselines (``train.global_vi`` / ``global_rws`` / ``global_qem``,
 ``Problem.sample_nonmp``, ``SampleNonMP``).  ``train.scan_steps`` and
 ``train.vmap_runs`` run a loop of steps, and independent runs, as CUDA
 graphs replayed on the card (the eager loop on the CPU).  It carries the
-MovieLens models, the covid timeseries model and the AR(1) timeseries
-model.  A Timeseries may stand
-in Q, drawing K particles permuted step by step.
+MovieLens models, the covid timeseries model (with its factorised Q or
+the ``corr_Q`` MultivariateNormal proposal) and the AR(1) timeseries
+model.  A Timeseries may stand in Q, drawing K particles permuted step
+by step.
 
 It reads a posterior out: moments (``Sample.moments``; ``mean``, ``var``,
 ``std_from_raw_moment`` and the rest of ``moments``), the marginal weights
@@ -31,8 +34,7 @@ forward from its last state; ``predict.importance_sample_fn`` and
 
 from .dims import DT, dt
 from .bound import BoundPlate, named
-from .ir import (Plate, Group, Data, Timeseries, OptParam, QEMParam, Normal,
-                 Bernoulli, NegativeBinomial, Beta)
+from .ir import Plate, Group, Data, Timeseries, OptParam, QEMParam, new_dist
 from .sampler import (PermutationSampler, CategoricalSampler, IndependentSampler,
                       samplers)
 from .problem import Problem
@@ -46,14 +48,18 @@ from .moments import (RawMoment, CompoundMoment, mean, mean2, mean_log, mean_log
 from .split import no_checkpoint
 from . import train, convert, predict
 
+# the user-facing constructor of every family (Normal, Beta, ...)
+from .ir.dist import _dist_calls as _dc
+globals().update(_dc)
+
 __all__ = [
     "DT", "dt", "named", "Plate", "BoundPlate", "Problem", "Group", "Data",
-    "Timeseries", "OptParam", "QEMParam", "Normal", "Bernoulli",
-    "NegativeBinomial", "Beta",
+    "Timeseries", "OptParam", "QEMParam", "new_dist",
     "PermutationSampler", "CategoricalSampler", "IndependentSampler",
     "samplers", "Sample", "SampleNonMP", "Marginals", "ImportanceSample",
     "ExtendedImportanceSample", "RawMoment", "CompoundMoment", "mean",
     "mean2", "mean_log", "mean_log1m", "mean_recip", "mean_xxT", "var",
     "cov_x", "var_from_raw_moment", "std_from_raw_moment", "no_checkpoint",
     "train", "convert", "predict",
+    *list(_dc.keys()),
 ]

@@ -84,7 +84,9 @@ class DimDist:
         ``noise``, a DT with the draw's dims and shape (or a tensor laid
         out as the draw: its new dims, the parameters' dims, then the
         positional axes), replaces the generator's standard noise of a
-        reparameterised draw."""
+        reparameterised draw; a family whose noise holds more than one
+        number per draw (``Family.noise_event``) takes those on its last
+        axes."""
         sample_dims = list(sample_dims)
         if len(set(sample_dims)) != len(sample_dims):
             raise ValueError(f"duplicate sample_dims {sample_dims}")
@@ -113,8 +115,9 @@ class DimDist:
             if set(eps.dims) != set(out_dims):
                 raise ValueError(f"noise dims {eps.dims}, the draw's {out_dims}")
             eps = eps.with_dims_front(list(out_dims)).data
-            if tuple(eps.shape) != full:
-                raise ValueError(f"noise shape {tuple(eps.shape)}, the draw's {full}")
+            want = full + tuple(self.family.noise_event)
+            if tuple(eps.shape) != want:
+                raise ValueError(f"noise shape {tuple(eps.shape)}, the draw's {want}")
             params = self._prepared_params(len(sample_shape), eps.device)
             data = self.family.from_noise(eps, params)
         out = DT(data, out_dims)

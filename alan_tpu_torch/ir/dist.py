@@ -250,10 +250,14 @@ def sample_gdt(prog: dict, scope: dict, keygen, active_platedims, K_dim,
 
 # ---- family table: one user-facing constructor per family ----------------
 
-_dist_calls: dict[str, type] = {
-    name: type(name, (_DistCall,), {"family": fam})
-    for name, fam in FAMILIES.items()}
-Normal = _dist_calls["Normal"]
-Bernoulli = _dist_calls["Bernoulli"]
-NegativeBinomial = _dist_calls["NegativeBinomial"]
-Beta = _dist_calls["Beta"]
+def new_dist(name: str, family: type[Family]):
+    """Register a user-facing distribution class for ``family``."""
+    DC = type(name, (_DistCall,), {"family": family})
+    globals()[name] = DC
+    _dist_calls[name] = DC
+    return DC
+
+
+_dist_calls: dict[str, type] = {}
+for _name, _fam in FAMILIES.items():
+    new_dist(_name, _fam)

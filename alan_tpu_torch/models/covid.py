@@ -11,7 +11,11 @@ this package and ``alan_tpu``.
 
 Q is a factorised Normal whose parameters are opt params, a location and a
 log-scale (``Q_param_type="opt"``, the default, as ``alan_tpu``'s: VI and
-RWS), or QEM parameters (``"qem"``).  Either way the chain operator of
+RWS), or QEM parameters (``"qem"``).  With ``corr_Q`` (QEM only) the NPI
+coefficients CM_alpha take a full-covariance MultivariateNormal proposal
+(location ``QEMParam(zeros(9))``, covariance ``QEMParam(eye(9))``), and P
+states their prior as the same MultivariateNormal, so that the supports
+match.  Either way the chain operator of
 ``log_infected`` is ``[nRs, K_npis, T, K_a, K_log_infected]``: nRs * K
 chains of T = 109 operators of K x K, which the small-K chain kernel
 contracts.
@@ -25,8 +29,8 @@ import torch
 
 from ..bound import BoundPlate
 from ..convert import dt_from_numpy
-from ..ir import (Data, Group, NegativeBinomial, Normal, OptParam, Plate,
-                  QEMParam, Timeseries)
+from ..ir import (Data, Group, MultivariateNormal, NegativeBinomial, Normal,
+                  OptParam, Plate, QEMParam, Timeseries)
 from ..problem import Problem
 
 nRs = 92
@@ -96,7 +100,9 @@ def load_data_covariates(seed=0, nRs=nRs, nDs=nDs, device="cuda"):
             {"obs": obs}, {"obs": all_obs}, covariates, all_covariates)
 
 
-def get_P(platesizes, covariates, device="cuda"):
+def get_P(platesizes, covariates, corr_CM=False, device="cuda"):
+    """The prior.  ``corr_CM`` states CM_alpha's prior, N(0, I_9), as a
+    MultivariateNormal (the real_vector support of the corr_Q proposal)."""
     cm_prior_scale = 1
     wearing_mean, wearing_sigma = 0, 0.4
     mobility_mean, mobility_sigma = 1.704, 0.44
@@ -108,8 +114,14 @@ def get_P(platesizes, covariates, device="cuda"):
         RegionR + CM_alpha @ ActiveCMs_NPIs + Wearing_alpha * ActiveCMs_wearing \
         + Mobility_alpha * ActiveCMs_mobility + prev
 
+    if corr_CM:
+        cm_alpha_P = MultivariateNormal(
+            torch.zeros(nCMs - 2),
+            covariance_matrix=cm_prior_scale ** 2 * torch.eye(nCMs - 2))
+    else:
+        cm_alpha_P = Normal(0, cm_prior_scale, sample_shape=[nCMs - 2])
     P = Plate(
-        CM_alpha=Normal(0, cm_prior_scale, sample_shape=[nCMs - 2]),
+        CM_alpha=cm_alpha_P,
         Wearing_alpha=Normal(wearing_mean, wearing_sigma),
         Mobility_alpha=Normal(mobility_mean, mobility_sigma),
         RegionR=Normal(R_prior_mean_mean, R_prior_mean_scale + R_noise_scale),
@@ -137,15 +149,13 @@ def generate_problem(platesizes, data, covariates, Q_param_type="opt",
                      corr_Q=False, device="cuda"):
     """The covid problem with a factorised Normal Q (``Q_param_type``
     ``"opt"`` or ``"qem"``; ``examples/models/covid.py:121-170``).  The
-    JAX benchmark's ``covid_full_qem_K30`` is ``"qem"``.  ``corr_Q`` (a
-    MultivariateNormal proposal for CM_alpha) is not ported yet."""
-    if corr_Q:
-        raise NotImplementedError(
-            "corr_Q needs a MultivariateNormal, not ported to alan_tpu_torch "
-            "yet (ROADMAP queue 1 item 6)")
+    JAX benchmark's ``covid_full_qem_K30`` is ``"qem"``.  ``corr_Q`` (QEM
+    only) gives CM_alpha a full-covariance MultivariateNormal proposal:
+    under a factorised Q the NPI coefficients stay biased at every K, as
+    ``examples/models/covid.py:121-131`` sets out."""
     if Q_param_type not in ("opt", "qem"):
         raise ValueError(f"Q_param_type must be 'opt' or 'qem', not {Q_param_type!r}")
-    P = get_P(platesizes, covariates, device)
+    P = get_P(platesizes, covariates, corr_CM=corr_Q, device=device)
 
     def q(loc_init=0.0, scale_init=1.0, shape=None):
         full = (lambda v: torch.full(shape, float(v))) if shape else float
@@ -155,9 +165,17 @@ def generate_problem(platesizes, data, covariates, Q_param_type="opt",
                                    transformation=torch.exp))
         return Normal(QEMParam(full(loc_init)), QEMParam(full(scale_init)))
 
+    if corr_Q:
+        if Q_param_type != "qem":
+            raise ValueError("corr_Q covid Q requires Q_param_type='qem'")
+        cm_alpha_Q = MultivariateNormal(
+            QEMParam(torch.zeros(nCMs - 2)),
+            covariance_matrix=QEMParam(torch.eye(nCMs - 2)))
+    else:
+        cm_alpha_Q = q(shape=(nCMs - 2,))
     Q = Plate(
         npis=Group(
-            CM_alpha=q(shape=(nCMs - 2,)),
+            CM_alpha=cm_alpha_Q,
             Wearing_alpha=q(),
             Mobility_alpha=q(),
             RegionR=q(loc_init=1.0),

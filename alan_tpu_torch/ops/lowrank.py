@@ -1,6 +1,5 @@
 """Cross-K log-densities as batched matmuls, dense or lazy (counterpart of
-``alan_tpu/ops/lowrank.py``; this slice ports the Normal, the one family of
-the MovieLens model with a factored form).
+``alan_tpu/ops/lowrank.py``, with its six factored families).
 
 In MP inference a latent's P-factor evaluates the child's K samples against
 all K parent-conditioned densities: ``lp[K_child, K_parent, plates]``.
@@ -10,10 +9,19 @@ Exponential-family densities factorise over (sufficient statistic of x) x
     lp = sum_pos[ sum_r u_r(x) * v_r(theta) ] + sum_pos[ c(theta) ] + sum_pos[ h(x) ]
 
 so the cross product is an inner product over (positional axes x R terms)
-between an x-side matrix and a parameter-side matrix.  For the Normal,
-``u = [x'^2, x']`` and ``v = [-1/(2 s^2), m'/s^2]`` with the square expanded
-around a detached centre c (the mean of x over its private K-dims), which
-keeps the f32 cancellation error at ~ulp * ((x - c)/s)^2 nats.
+between an x-side matrix and a parameter-side matrix.  Factored forms:
+
+    Normal      u = [x'^2, x']          v = [-1/(2 s^2), m'/s^2]  (centred)
+    LogNormal   the Normal on log x     h(x) = -log x
+    Exponential u = [x]                 v = [-rate]
+    Gamma, Chi2 u = [log x, x]          v = [conc - 1, -rate]
+    Beta        u = [log x, log1p(-x)]  v = [c1 - 1, c0 - 1]
+
+For the Normal the square is expanded around a detached centre c (the mean
+of x over its private K-dims), which keeps the f32 cancellation error at
+~ulp * ((x - c)/s)^2 nats.  The other forms are exact algebra.  So the
+lazy factor's rank F (its features per positional element) is 2, or 1 for
+the Exponential.
 
 ``lowrank_logprob`` materialises the product as one ``torch.matmul`` (full
 f32; TF32 stays off, see ``utils.resolve_device``).  ``LowRankDT`` keeps it
@@ -40,13 +48,16 @@ import os
 
 import torch
 
-from ..dims import DT, as_dt, unify_dims, expand_to, dimsizes_of, logsumexp_dims
+from ..dims import (DT, as_dt, unify_dims, expand_to, dimsizes_of, logsumexp_dims,
+                    elementwise as ew)
 from .lowrank_kernel import lowrank_logsumexp
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
-#: families with a factored form in this package
-LOWRANK_FAMILIES = ("Normal",)
+#: families with a factored form (Chi2 canonicalises to the Gamma's
+#: parameters and shares its form)
+LOWRANK_FAMILIES = ("Normal", "LogNormal", "Exponential", "Gamma", "Chi2",
+                    "Beta")
 
 #: calls of ``LowRankDT.contract`` that reached the fused contraction
 CONTRACT_CALLS = 0
@@ -104,7 +115,7 @@ def lowrank_applicable(family_name, x, params, arg_dims) -> bool:
 
 
 def _normal_terms(y, loc, scale, x_only):
-    """Centered quadratic expansion of the Normal log-density."""
+    """Centred quadratic expansion shared by the Normal and the LogNormal."""
     yo = y.with_dims_front(list(x_only))
     c0 = DT(torch.mean(yo.data, dim=tuple(range(len(x_only)))).detach(),
             yo.dims[len(x_only):])
@@ -118,9 +129,27 @@ def _normal_terms(y, loc, scale, x_only):
 
 
 def _factored(family_name, x, params, x_only):
-    """-> (u_feats, v_coefs, c_param)."""
+    """-> (u_feats, v_coefs, c_param, c_x): the x-side features, the
+    parameter-side coefficients, the x-free term and the parameter-free
+    term (None where there is none)."""
     if family_name == "Normal":
-        return _normal_terms(x, as_dt(params["loc"]), as_dt(params["scale"]), x_only)
+        u, v, c_p = _normal_terms(x, params["loc"], params["scale"], x_only)
+        return u, v, c_p, None
+    if family_name == "LogNormal":
+        lx = x.log()
+        u, v, c_p = _normal_terms(lx, params["loc"], params["scale"], x_only)
+        return u, v, c_p, -lx
+    if family_name == "Exponential":
+        rate = params["rate"]
+        return [x], [-rate], rate.log(), None
+    if family_name in ("Gamma", "Chi2"):
+        a, b = params["concentration"], params["rate"]
+        c_p = a * b.log() - ew(torch.lgamma, a)
+        return [x.log(), x], [a - 1.0, -b], c_p, None
+    if family_name == "Beta":
+        a, b = params["concentration1"], params["concentration0"]
+        c_p = ew(torch.lgamma, a + b) - ew(torch.lgamma, a) - ew(torch.lgamma, b)
+        return [x.log(), ew(torch.log1p, -x)], [a - 1.0, b - 1.0], c_p, None
     raise KeyError(family_name)
 
 
@@ -374,8 +403,10 @@ def lowrank_logprob_lazy(family_name, x, params) -> LowRankDT:
     x = as_dt(x)
     pvals = {k: as_dt(v) for k, v in params.items()}
     x_only, p_only, shared, sizes, pos = _split_dims(x, pvals)
-    u_feats, v_coefs, c_p = _factored(family_name, x, pvals, x_only)
+    u_feats, v_coefs, c_p, c_x = _factored(family_name, x, pvals, x_only)
     U = _as_feat(u_feats, shared + x_only, sizes, pos)
     V = _as_feat(v_coefs, shared + p_only, sizes, pos)
     p_side = _side_sum(c_p, shared + p_only, sizes, pos)
-    return LowRankDT(U, V, shared, x_only, p_only, sizes, p_side=p_side)
+    x_side = None if c_x is None else _side_sum(c_x, shared + x_only, sizes, pos)
+    return LowRankDT(U, V, shared, x_only, p_only, sizes,
+                     x_side=x_side, p_side=p_side)

@@ -196,14 +196,38 @@ without its final line:
                 each replay: QEM the lowrank forward and ``MODE_DD``, VI
                 ``MODE_DU`` and ``MODE_DV``, covid 3 + 3 chain launches,
                 AR(1) 2 fused launches; a profile of one call's replays
-                (device busy, idle share) must show those kernels' names.
+                (device busy, idle share) must show those kernels' names;
+26. families_cuda -- every distribution family (35) on the card, run after
+                phase 2: 2e5 draws (2e4 of a matrix) from a CUDA generator
+                by ``tests/test_families.py``'s ``check_mean_var`` rule
+                (or the family's own criterion where it states no
+                moments), ``log_prob`` on the card against the host's
+                (1e-5 of max(1, |value|)), the reparameterised draws'
+                gradients against the host's from the same noise (rtol
+                1e-4); no kernel of the repo runs;
+27. lowrank_families_k1000 -- the factored forms of the LogNormal,
+                Exponential, Gamma, Chi2 and Beta at grouped MovieLens
+                K=1000's sizes (K_z = K_g = 1000, plate 300; rank F = 1 or
+                2) through ``LowRankDT.contract`` (the lowrank forward and
+                one backward, ``MODE_DU`` with dV) against the materialised
+                route: value 1e-5, gradients 1e-4 (or the f64 rule); each
+                kernel's ms at that F beside its bounds;
+28. covid_corrq_main_path -- covid at full size with its corr_Q proposal
+                (a QEM MultivariateNormal over the 9 NPI coefficients),
+                K=30, ``train.qem``: 3 + 3 chain launches a step, finite
+                ELBOs, the proposal's covariance positive definite
+                (Cholesky info 0) after every step; a profile;
+29. covid_corrq_cross_check -- phase 10's check on it;
+30. scan_covid_corrq_k30 -- phase 24's on it (the MultivariateNormal's
+                Cholesky factor inside the graph).
 
-Each path (phases 3, 5, 7, 9, 11, 13, and each call of 14, 16, 17 and 19)
-is driven with the launch counters set to 0 just before it and read just
-after, and each but 13's and 19's is profiled over two more steps or
-calls.  Then the ``kernels`` line (the VI path's lowrank launches by
-backward mode, the RWS path's chain launches and the posterior calls'
-lowrank, chain and fused launches beside the QEM paths', and
+Each path (phases 3, 5, 7, 9, 11, 13, 28, each call of 14, 16, 17 and 19,
+and each family of 27) is driven with the launch counters set to 0 just
+before it and read just after, and each but 13's, 19's and 27's is
+profiled over two more steps or calls.  Then the ``kernels`` line (the VI
+path's lowrank launches by backward mode, the RWS and corr_Q paths' chain
+launches, the posterior calls' lowrank, chain and fused launches beside
+the QEM paths', the factored families' lowrank launches and ms, and
 ``graph_launches``: each captured path's launches per replay and its
 replays), the card's name and power limit as nvidia-smi prints them, and
 ``{"ok": true, "device": {...}}`` last.
@@ -433,6 +457,43 @@ def _captured_main_operands():
     return [seen[k].contiguous() for k in "UVDG"]
 
 
+def _lowrank_bounds(S, P, I, J, F):
+    """The least times of the lowrank kernels' work at (S, P, I, J, F), in
+    ms: each input read once and each output written once over the HBM
+    rate, against the products as f32 FMAs on the CUDA cores (``_f32``) or
+    as the kernels make them, 3xTF32 on the tensor cores with the
+    exponentials on the special-function units (``_tc``).  The forward
+    reads U, V, D and writes out; the backward's dD mode reads them, out
+    and the cotangent and writes dD; all three gradients also write dU and
+    dV, and need the scores once and the dU and dV products (2 P I J F
+    operations each) with the exponentials once.  The kernels do more:
+    ``MODE_DU`` and ``MODE_DV`` each recompute the scores and the
+    exponentials, the count reported beside the bound."""
+    f32 = 4
+    fwd_bytes = f32 * (S * P * I * F + S * J * F + S * P * I + S * P * J)
+    bwd_bytes = f32 * (S * P * I * F + S * J * F + 2 * S * P * I + 2 * S * P * J)
+    all_bytes = bwd_bytes + f32 * (S * P * I * F + S * J * F)
+    flops = 2.0 * S * P * I * J * F
+    exps = S * P * I * J
+    tc_ms, exp_ms = 3 * flops / PEAK_TF32_FLOP_PER_S * 1e3, exps / PEAK_EXP_PER_S * 1e3
+    fwd_byte_ms = fwd_bytes / PEAK_BYTES_PER_S * 1e3
+    return {
+        "fwd_bound_f32_ms": bound(fwd_bytes, flops)[0],
+        "bwd_dD_bound_f32_ms": bound(bwd_bytes, flops)[0],
+        "bwd_all_grads_bound_f32_ms": bound(all_bytes, 3 * flops)[0],
+        "fwd_bound_tc_ms": max(fwd_byte_ms, tc_ms, exp_ms),
+        "bwd_dD_bound_tc_ms": max(bwd_bytes / PEAK_BYTES_PER_S * 1e3, tc_ms, exp_ms),
+        "bwd_all_grads_bound_tc_ms": max(all_bytes / PEAK_BYTES_PER_S,
+                                         3 * 3 * flops / PEAK_TF32_FLOP_PER_S,
+                                         exps / PEAK_EXP_PER_S) * 1e3,
+        "bwd_all_grads_kernels_count_tc_ms": max(all_bytes / PEAK_BYTES_PER_S,
+                                                 3 * 4 * flops / PEAK_TF32_FLOP_PER_S,
+                                                 2 * exps / PEAK_EXP_PER_S) * 1e3,
+        "bound_by": "operations" if max(tc_ms, exp_ms) >= fwd_byte_ms else "bytes",
+        "tc_products_ms": tc_ms, "tc_exp_ms": exp_ms,
+    }
+
+
 def phase_kernels():
     """Kernel = plain version, and the times of both at the main shape."""
     import torch
@@ -468,29 +529,13 @@ def phase_kernels():
         return torch.logsumexp(A.reshape(S, P, I, J), dim=2)
     two_call_ms = cuda_ms(dense_two_call, reps=5, inner=1)
 
-    f32 = 4
-    fwd_bytes = f32 * (S * P * I * F + S * J * F + S * P * I + S * P * J)
-    bwd_bytes = f32 * (S * P * I * F + S * J * F + 2 * S * P * I + 2 * S * P * J)
-    flops = 2.0 * S * P * I * J * F
+    b = _lowrank_bounds(S, P, I, J, F)
+    fwd_bound, bwd_bound = b["fwd_bound_f32_ms"], b["bwd_dD_bound_f32_ms"]
+    fwd_tc, bwd_tc, tc_by = b["fwd_bound_tc_ms"], b["bwd_dD_bound_tc_ms"], b["bound_by"]
+    tc_ms, exp_ms = b["tc_products_ms"], b["tc_exp_ms"]
     exps = S * P * I * J
-    fwd_bound, _ = bound(fwd_bytes, flops)          # f32 FMAs on the CUDA cores
-    bwd_bound, _ = bound(bwd_bytes, flops)          # dD only: the scores again
-    # the kernels' own bound: f32-grade scores as 3xTF32 tensor-core products,
-    # the exponentials on the special-function units
-    tc_ms, exp_ms = 3 * flops / PEAK_TF32_FLOP_PER_S * 1e3, exps / PEAK_EXP_PER_S * 1e3
-    fwd_tc = max(fwd_bytes / PEAK_BYTES_PER_S * 1e3, tc_ms, exp_ms)
-    bwd_tc = max(bwd_bytes / PEAK_BYTES_PER_S * 1e3, tc_ms, exp_ms)
-    tc_by = "operations" if max(tc_ms, exp_ms) >= fwd_bytes / PEAK_BYTES_PER_S * 1e3 else "bytes"
-    # all three gradients: the function needs one pass of scores (2 P I J F),
-    # the dU product and the dV product (2 P I J F each), the exponentials
-    # once.  The kernels do more: MODE_DU and MODE_DV each recompute the
-    # scores and the exponentials; that count is reported beside the bound
-    all_bytes = bwd_bytes + f32 * (S * P * I * F + S * J * F)   # + dU and dV out
-    all_f32, _ = bound(all_bytes, 3 * flops)
-    all_tc = max(all_bytes / PEAK_BYTES_PER_S, 3 * 3 * flops / PEAK_TF32_FLOP_PER_S,
-                 exps / PEAK_EXP_PER_S) * 1e3
-    all_impl_tc = max(all_bytes / PEAK_BYTES_PER_S, 3 * 4 * flops / PEAK_TF32_FLOP_PER_S,
-                      2 * exps / PEAK_EXP_PER_S) * 1e3
+    all_f32, all_tc = b["bwd_all_grads_bound_f32_ms"], b["bwd_all_grads_bound_tc_ms"]
+    all_impl_tc = b["bwd_all_grads_kernels_count_tc_ms"]
     emit({"phase": "kernels", "case": "timing", "shape": list(MAIN_SHAPE),
           "fwd_ms": fwd_ms, "bwd_dD_ms": bwd_ms, "bwd_all_grads_ms": bwd_all_ms,
           "plain_fwd_ms": plain_fwd_ms, "plain_bwd_dD_ms": plain_bwd_ms,
@@ -883,12 +928,13 @@ def _finite(xs):
     return all(x == x and abs(x) != float("inf") for x in xs)
 
 
-def _train_path(phase, step, state, K, must_launch, info):
+def _train_path(phase, step, state, K, must_launch, info, check=None):
     """``STEPS`` timed training steps after a warm-up, with the launch
     counters zeroed just before and read after every step: each kernel in
-    ``must_launch`` must run in every step.  Then a profile of two more
-    steps.  Returns (state, launches over the timed steps, the result line,
-    the profile line)."""
+    ``must_launch`` must run in every step.  ``check(state)``, if given,
+    returns a number that must be 0 after every step (read after the timed
+    loop).  Then a profile of two more steps.  Returns (state, launches
+    over the timed steps, the result line, the profile line)."""
     import torch
     from alan_tpu_torch.utils import assert_full_f32
     assert_full_f32(torch.device("cuda"))
@@ -897,12 +943,14 @@ def _train_path(phase, step, state, K, must_launch, info):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    elbos, per_step = [], []
+    elbos, per_step, checks = [], [], []
     t0 = time.perf_counter()
     for _ in range(STEPS):
         state, elbo = step(state, gen)
         elbos.append(elbo)
         per_step.append(read_counts())
+        if check is not None:
+            checks.append(check(state))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / STEPS * 1e3
     launches = per_step[-1]
@@ -922,6 +970,11 @@ def _train_path(phase, step, state, K, must_launch, info):
     if steps_without:
         res["ok"] = False
         fail(phase, f"{steps_without} did not launch in every step: {per_step}")
+    if check is not None:
+        res["checks_per_step"] = [int(c) for c in checks]
+        if any(res["checks_per_step"]):
+            res["ok"] = False
+            fail(phase, f"the step check is not 0 after every step: {res['checks_per_step']}")
     emit(res)
     prof = _profile_step(phase, step, state, gen, ms)
     return state, launches, res, prof
@@ -2273,6 +2326,379 @@ def phase_global_k30(problem):
     torch.cuda.empty_cache()
 
 
+# ---- the seventh slice: every family, the factored forms, covid corr_Q ---------
+
+#: draws per family on the card (matrix families: FAMILY_MATRIX_DRAWS)
+FAMILY_DRAWS, FAMILY_MATRIX_DRAWS = 200_000, 20_000
+
+
+def _family_cases():
+    """name -> (params, (mean, var, rtol) or None, event shape): the
+    parameters and analytic moments of ``tests/test_families.py``, and for
+    the families that file leaves out, moments of their own."""
+    import numpy as np
+    from math import gamma as G, pi
+    cat = np.array([0.2, 0.5, 0.3])
+    A = np.array([[2.0, 0.5], [0.5, 1.0]])
+    cov = A @ A.T
+    W = np.array([[1.0, 0.5], [-0.3, 0.8]])
+    lr_cov = W @ W.T + np.diag([0.5, 0.2])
+    V = np.array([[1.0, 0.3], [0.3, 2.0]])
+    dirm = np.array([0.2, 0.3, 0.5])
+    kum_m = 3.0 * G(1.5) * G(3.0) / G(4.5)
+    kum_m2 = 3.0 * G(2.0) * G(3.0) / G(5.0)
+    wei_m = 2.0 * G(1 + 1 / 1.5)
+    # ContinuousBernoulli(0.3)'s mean and variance in closed form
+    lam = 0.3
+    cb_m = lam / (2 * lam - 1) + 1 / np.log((1 - lam) / lam)
+    cb_v = lam * (lam - 1) / (1 - 2 * lam) ** 2 + 1 / np.log((1 - lam) / lam) ** 2
+    return {
+        "Normal": ({"loc": 1.5, "scale": 2.0}, (1.5, 4.0, 0.05), ()),
+        "HalfNormal": ({"scale": 2.0}, (2.0 * np.sqrt(2 / pi), 4.0 * (1 - 2 / pi), 0.05), ()),
+        "Cauchy": ({"loc": 0.5, "scale": 1.5}, None, ()),
+        "HalfCauchy": ({"scale": 1.5}, None, ()),
+        "LogNormal": ({"loc": 0.2, "scale": 0.5},
+                      (np.exp(0.325), (np.exp(0.25) - 1) * np.exp(0.65), 0.05), ()),
+        "Uniform": ({"low": -1.0, "high": 3.0}, (1.0, 16 / 12, 0.05), ()),
+        "Exponential": ({"rate": 2.0}, (0.5, 0.25, 0.05), ()),
+        "Gamma": ({"concentration": 3.0, "rate": 2.0}, (1.5, 0.75, 0.05), ()),
+        "Chi2": ({"df": 5.0}, (5.0, 10.0, 0.05), ()),
+        "Beta": ({"concentration1": 2.0, "concentration0": 3.0}, (0.4, 0.04, 0.05), ()),
+        "StudentT": ({"df": 5.0, "loc": 1.0, "scale": 2.0}, (1.0, 4.0 * 5 / 3, 0.1), ()),
+        "Laplace": ({"loc": 0.5, "scale": 1.5}, (0.5, 4.5, 0.05), ()),
+        "Gumbel": ({"loc": 0.5, "scale": 1.5},
+                   (0.5 + 1.5 * np.euler_gamma, (pi * 1.5) ** 2 / 6, 0.05), ()),
+        "Kumaraswamy": ({"concentration1": 2.0, "concentration0": 3.0},
+                        (kum_m, kum_m2 - kum_m ** 2, 0.05), ()),
+        "Pareto": ({"scale": 1.0, "alpha": 3.0}, (1.5, 0.75, 0.3), ()),
+        "Weibull": ({"scale": 2.0, "concentration": 1.5},
+                    (wei_m, 4.0 * G(1 + 2 / 1.5) - wei_m ** 2, 0.05), ()),
+        "FisherSnedecor": ({"df1": 5.0, "df2": 8.0},
+                           (8 / 6, 2 * 8 ** 2 * 11 / (5 * 36 * 4), 0.2), ()),
+        "VonMises": ({"loc": 0.5, "concentration": 2.0}, None, ()),
+        "Bernoulli": ({"probs": 0.3}, (0.3, 0.21, 0.05), ()),
+        "ContinuousBernoulli": ({"probs": 0.3}, (cb_m, cb_v, 0.05), ()),
+        "Binomial": ({"total_count": 10.0, "probs": 0.3}, (3.0, 2.1, 0.05), ()),
+        "Poisson": ({"rate": 4.0}, (4.0, 4.0, 0.05), ()),
+        "Geometric": ({"probs": 0.3}, (0.7 / 0.3, 0.7 / 0.09, 0.1), ()),
+        "NegativeBinomial": ({"total_count": 5.0, "probs": 0.4},
+                             (5 * 0.4 / 0.6, 5 * 0.4 / 0.36, 0.1), ()),
+        "Categorical": ({"probs": cat}, (cat @ np.arange(3),
+                                         cat @ np.arange(3) ** 2 - (cat @ np.arange(3)) ** 2,
+                                         0.05), ()),
+        "OneHotCategorical": ({"probs": cat}, (cat, cat * (1 - cat), 0.05), (3,)),
+        "Multinomial": ({"total_count": 4.0, "probs": cat}, (4 * cat, 4 * cat * (1 - cat), 0.05),
+                        (3,)),
+        "Dirichlet": ({"concentration": np.array([2.0, 3.0, 5.0])},
+                      (dirm, dirm * (1 - dirm) / 11, 0.05), (3,)),
+        "MultivariateNormal": ({"loc": np.array([1.0, -1.0]), "covariance_matrix": cov},
+                               (np.array([1.0, -1.0]), np.diag(cov), 0.05), (2,)),
+        "LowRankMultivariateNormal": (
+            {"loc": np.array([0.5, 0.0]), "cov_factor": W, "cov_diag": np.array([0.5, 0.2])},
+            (np.array([0.5, 0.0]), np.diag(lr_cov), 0.05), (2,)),
+        "LogitRelaxedBernoulli": ({"temperature": 0.5, "logits": 0.4},
+                                  (0.8, 4.0 * pi ** 2 / 3, 0.05), ()),
+        "RelaxedBernoulli": ({"temperature": 0.5, "probs": 0.3}, None, ()),
+        "RelaxedOneHotCategorical": ({"temperature": 0.7, "probs": cat}, None, (3,)),
+        "Wishart": ({"df": 5.0, "covariance_matrix": V},
+                    (5.0 * V, 5.0 * (V ** 2 + np.outer(np.diag(V), np.diag(V))), 0.05), (2, 2)),
+        "LKJCholesky": ({"dim": 3, "concentration": 1.5}, None, (3, 3)),
+    }
+
+
+def _family_criterion(name, x, params):
+    """(ok, value) of a family without moments above: Cauchy and
+    HalfCauchy their quartiles, VonMises its circular mean and resultant
+    length, the relaxed families their logistic and argmax laws, the
+    LKJCholesky a unit diagonal and its correlations' variance."""
+    import numpy as np
+    if name == "Cauchy":
+        v = float(np.mean(np.abs(x - 0.5) < 1.5))
+        return abs(v - 0.5) < 0.005, v
+    if name == "HalfCauchy":
+        v = float(np.mean(x < 1.5))
+        return abs(v - 0.5) < 0.005 and bool(np.all(x >= 0)), v
+    if name == "VonMises":
+        z = np.exp(1j * x.astype(np.float64)).mean()
+        r = 0.6978556                                  # I1(2) / I0(2)
+        return (abs(np.angle(z) - 0.5) < 0.02 and abs(abs(z) - r) < 0.01
+                and bool(np.all(np.abs(x) <= np.pi))), [float(np.angle(z)), float(abs(z))]
+    if name == "RelaxedBernoulli":
+        # sigmoid of a logistic of location logit(0.3) / 0.5 and scale 2
+        want = 1 / (1 + np.exp(np.log(0.3 / 0.7) / 0.5 / 2.0))
+        v = float(np.mean(x < 0.5))
+        return abs(v - want) < 0.005 and bool(np.all((x >= 0) & (x <= 1))), v
+    if name == "RelaxedOneHotCategorical":
+        freq = np.bincount(x.argmax(-1), minlength=3) / len(x)
+        return (bool(np.allclose(freq, params["probs"], atol=0.01))
+                and bool(np.allclose(x.sum(-1), 1.0, atol=1e-5))), freq.tolist()
+    if name == "LKJCholesky":
+        C = x.astype(np.float64) @ np.swapaxes(x, -1, -2)
+        b = 1.5 - 1 + 1.5
+        v = float(C[:, 1, 0].var())
+        return (bool(np.allclose(np.diagonal(C, axis1=-2, axis2=-1), 1.0, atol=1e-5))
+                and abs(v - 1 / (2 * b + 1)) < 0.01), v
+    raise KeyError(name)
+
+
+def phase_families_cuda():
+    """Every family on the card: 2e5 draws (2e4 of a matrix) from a CUDA
+    generator, gated by ``check_mean_var``'s rule of
+    ``tests/test_families.py`` (the mean within 6 standard errors + 0.02,
+    the variance within its rtol + 0.02, elementwise) or by the family's
+    own criterion; ``log_prob`` of 1000 draws on the card against the same
+    call on the host's CPU (1e-5 of max(1, |value|)); and for the
+    reparameterised families, the gradient of a function of the draws
+    from the card's noise with respect to every parameter, against the
+    host's from the same noise (rtol 1e-4, atol 1e-4 of the largest).  No
+    kernel of this repo runs: it checks that every sampler, and every
+    implicit gradient, runs on a CUDA generator and its tensors."""
+    import numpy as np
+    import torch
+    from alan_tpu_torch.distributions import families as F
+    phase = "families_cuda"
+    res, ok = {}, True
+    t0 = time.perf_counter()
+    for name, (params, moments, ev) in _family_cases().items():
+        fam = F.FAMILIES[name]
+        n = FAMILY_MATRIX_DRAWS if len(ev) == 2 else FAMILY_DRAWS
+
+        def on(device, grad=False):
+            p = {k: torch.tensor(np.asarray(v, np.float32), device=device,
+                                 requires_grad=grad and k != "dim")
+                 for k, v in params.items()}
+            return p, fam.canonicalize(dict(p))
+        _, p_card = on("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        x = fam.sample(gen, (n, *ev), p_card)
+        torch.cuda.synchronize()
+        xs = x.float().cpu().numpy()
+        row = {"draws": n, "finite": bool(np.all(np.isfinite(xs)))}
+        if moments is not None:
+            mean, var, rtol = moments
+            se = np.sqrt(np.asarray(var) / n)
+            m, v = xs.mean(0), xs.var(0)
+            row.update(mean=np.round(np.asarray(m, np.float64), 6).tolist(),
+                       var=np.round(np.asarray(v, np.float64), 6).tolist())
+            good = bool(np.all(np.abs(m - mean) < 6 * se + 0.02)
+                        and np.allclose(v, var, rtol=rtol, atol=0.02))
+        else:
+            good, row["criterion"] = _family_criterion(name, xs, params)
+        pts = x[:1000]
+        lp_card = fam.log_prob(pts, p_card)
+        lp_host = fam.log_prob(pts.cpu(), on("cpu")[1])
+        lp_err = ((lp_card.cpu() - lp_host).abs() / lp_host.abs().clamp(min=1.0)).max().item()
+        row["log_prob_rel_err"] = lp_err
+        good = good and row["finite"] and lp_err <= 1e-5
+        if fam.has_rsample:
+            leaves_c, pc = on("cuda", grad=True)
+            leaves_h, ph = on("cpu", grad=True)
+            eps = fam.noise(torch.Generator(device="cuda").manual_seed(8), (2000, *ev), pc)
+            keys = [k for k, v in leaves_c.items() if v.requires_grad]
+            gc = torch.autograd.grad(torch.sin(fam.from_noise(eps, pc)).sum(),
+                                     [leaves_c[k] for k in keys])
+            gh = torch.autograd.grad(torch.sin(fam.from_noise(eps.cpu(), ph)).sum(),
+                                     [leaves_h[k] for k in keys])
+            gerr = max(((a.cpu() - b).abs() / (1e-4 * (1 + b.abs()))).max().item()
+                       for a, b in zip(gc, gh))
+            row["grad_err_over_tol"] = gerr
+            good = good and gerr <= 1.0
+        row["ok"] = good
+        res[name] = row
+        if not good:
+            ok = False
+            fail(phase, f"{name}: {row}")
+    emit({"phase": phase, "families": len(res), "seconds": time.perf_counter() - t0,
+          "by_family": res, "ok": ok})
+
+
+#: K and the plate of grouped MovieLens at K=1000 (``main_path``)
+LOWRANK_FAMILIES_KP = (1000, 300)
+
+
+def _family_factor(name, dtype, requires_grad):
+    """A factor of ``name`` between K_z and K_g: x over (K_z, plate_1), its
+    parameters over K_g (one scalar latent per plate cell, so F = 1 or 2),
+    an x-side term over (K_z, plate_1); numpy seed by family."""
+    import zlib
+    import numpy as np
+    import torch
+    from alan_tpu_torch.dims import DT
+    K, P = LOWRANK_FAMILIES_KP
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    pos = lambda *s, lo=0.3, sc=1.0: np.abs(rng.standard_normal(s)) * sc + lo
+    if name == "LogNormal":
+        x = np.exp(rng.standard_normal((K, P)) * 0.5)
+        params = {"loc": rng.standard_normal(K) * 0.3, "scale": pos(K, lo=0.4, sc=0.3)}
+    elif name == "Exponential":
+        x, params = pos(K, P), {"rate": pos(K, lo=0.5)}
+    elif name == "Gamma":
+        x, params = pos(K, P), {"concentration": pos(K, lo=1.0, sc=2.0), "rate": pos(K, lo=0.5)}
+    elif name == "Chi2":
+        x, params = pos(K, P, sc=3.0), {"df": pos(K, lo=1.0, sc=3.0)}
+    else:  # Beta
+        u = pos(K, P)
+        x, params = u / (u + 1.2), {"concentration1": pos(K, lo=0.8, sc=2.0),
+                                    "concentration0": pos(K, lo=0.8, sc=2.0)}
+    side = rng.standard_normal((K, P))
+    mk = lambda a, dims: DT(torch.tensor(a, dtype=dtype, device="cuda",
+                                         requires_grad=requires_grad), dims)
+    return (mk(x, ("K_z", "plate_1")), {k: mk(v, ("K_g",)) for k, v in params.items()},
+            mk(side, ("K_z", "plate_1")))
+
+
+def _family_contract(name, dtype, env, record=None):
+    """logsumexp over K_z of the factor plus its x-side term, its value and
+    the gradients (weighted by a fixed cotangent) of x, the parameters and
+    the x-side term, through the route ``env`` selects."""
+    import numpy as np
+    import torch
+    from alan_tpu_torch.dims import logsumexp_dims
+    from alan_tpu_torch.distributions import families as F
+    from alan_tpu_torch.distributions.dimdist import DimDist
+    from alan_tpu_torch.ops import lowrank as tlr
+    x, params, side = _family_factor(name, dtype, True)
+    leaves = [x.data, *(v.data for v in params.values()), side.data]
+    kernel = tlr.lowrank_logsumexp
+    if record is not None:
+        def recording(U, V, D):
+            record.append((U.detach(), V.detach(), D.detach()))
+            return kernel(U, V, D)
+        tlr.lowrank_logsumexp = recording
+    os.environ.update(env)
+    try:
+        lp = DimDist(F.FAMILIES[name], **params).log_prob(x)
+        lazy = getattr(lp, "__lazy_dt__", False)
+        out = lp.contract(("K_z",), [side]) if lazy else None
+        if out is None:
+            out = logsumexp_dims(lp + side, ("K_z",))
+        out = out.with_dims_front(["plate_1", "K_g"]).data
+        G = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            tuple(out.shape))).to(device="cuda", dtype=dtype)
+        grads = torch.autograd.grad(out, leaves, G)
+        torch.cuda.synchronize()
+    finally:
+        tlr.lowrank_logsumexp = kernel
+        for k in env:
+            del os.environ[k]
+    return lazy, out.detach(), grads
+
+
+def phase_lowrank_families_k1000():
+    """The factored forms of the LogNormal, Exponential, Gamma, Chi2 and
+    Beta at grouped MovieLens K=1000's sizes (K_z = K_g = 1000, plate 300):
+    the lazy factor contracted through ``LowRankDT.contract``, which
+    launches the lowrank forward (row 1) and the backward once (row 2, in
+    ``MODE_DU``, which gives dD beside dU, and with dV: x, the parameters
+    and the x-side term all carry a gradient), at rank F = 1 (Exponential)
+    or 2, against
+    the materialised route (``ALAN_TPU_NO_LAZY_LOWRANK=1``): value 1e-5
+    relative, gradients rtol/atol 1e-4, or (the f64 rule of
+    ``_check_case``) at least as close as the materialised route to the
+    float64 evaluation.  Then each kernel's ms at that F, on the operands
+    the contraction handed it."""
+    import torch
+    from alan_tpu_torch.ops import lowrank_kernel as lk
+    phase = "lowrank_families_k1000"
+    lazy_env = {"ALAN_TPU_LOWRANK_MIN": "1", "ALAN_TPU_LAZY_LOWRANK": "1"}
+    dense_env = {"ALAN_TPU_LOWRANK_MIN": "1", "ALAN_TPU_NO_LAZY_LOWRANK": "1"}
+    rows, launches_all = {}, {}
+    for name in ("LogNormal", "Exponential", "Gamma", "Chi2", "Beta"):
+        record = []
+        zero_counts()
+        lazy, out_k, g_k = _family_contract(name, torch.float32, lazy_env, record)
+        launches = read_counts()
+        _, out_d, g_d = _family_contract(name, torch.float32, dense_env)
+        _, out_e, g_e = _family_contract(name, torch.float64, dense_env)
+        row = {"lazy": lazy, "launches": {k: v for k, v in launches.items() if v},
+               "ok": lazy}
+        _check(row, phase, name, "out", out_k, out_d, out_e, 1e-5, 1e-5, True)
+        for n_, a, b, c in zip(["x", *range(len(g_k) - 2), "side"], g_k, g_d, g_e):
+            _check(row, phase, name, f"d_{n_}", a, b, c, 1e-4, 1e-4, True)
+        need = ("lowrank_fwd", "lowrank_bwd", "lowrank_bwd_dU", "lowrank_bwd_dV")
+        if not lazy or any(launches[k] != 1 for k in need):
+            row["ok"] = False
+            fail(phase, f"{name}: lazy {lazy}, launches {launches}")
+        U, V, D = record[0]
+        S, Pp, I, F = U.shape
+        J = V.shape[1]
+        G = torch.randn(S, Pp, J, device="cuda")
+        o, rnd = lk._launch_fwd(U, V, D)
+        row.update(shape=[S, Pp, I, J, F], F=F,
+                   fwd_ms=cuda_ms(lambda: lk._launch_fwd(U, V, D)),
+                   bwd_dD_ms=cuda_ms(lambda: lk._launch_bwd(U, V, D, o, rnd, G, False, False)),
+                   bwd_all_grads_ms=cuda_ms(lambda: lk._launch_bwd(U, V, D, o, rnd, G,
+                                                                    True, True)),
+                   plain_fwd_ms=cuda_ms(lambda: lk.reference_lowrank_logsumexp(U, V, D),
+                                        reps=5, inner=1),
+                   **_lowrank_bounds(S, Pp, I, J, F))
+        rows[name] = row
+        launches_all[name] = launches
+        emit({"phase": phase, "family": name, **row})
+    ok = all(r["ok"] for r in rows.values())
+    summary = {name: {k: r[k] for k in ("F", "fwd_ms", "bwd_dD_ms", "bwd_all_grads_ms",
+                                         "plain_fwd_ms", "fwd_bound_tc_ms",
+                                         "bwd_dD_bound_tc_ms", "bwd_all_grads_bound_tc_ms")}
+               for name, r in rows.items()}
+    emit({"phase": phase, "summary": True, "by_family": summary,
+          "clocks_power": nvidia_smi_clocks(), "ok": ok})
+    total = {k: sum(l[k] for l in launches_all.values()) for k in read_counts()}
+    return total, summary
+
+
+def _corrq_problem():
+    from alan_tpu_torch.models import covid
+    ps, _, data, _, cov, _ = covid.load_data_covariates(seed=0, device="cuda")
+    return covid.generate_problem(ps, data, cov, "qem", corr_Q=True, device="cuda"), ps
+
+
+def _cholesky_info(state):
+    """The info of the Cholesky factorisation of the MVN proposal's
+    covariance in a QEM state: 0 where it is positive definite."""
+    import torch
+    cov = state[1]["qem_params"]["CM_alpha_covariance_matrix"].data
+    return torch.linalg.cholesky_ex(cov)[1]
+
+
+def phase_covid_corrq_main_path():
+    """Covid at full size with its corr_Q proposal (a QEM MultivariateNormal
+    over the 9 NPI coefficients), K=30, ``train.qem``: 3 forward and 3
+    backward chain launches a step, as factorised covid has, finite ELBOs,
+    and the proposal's covariance positive definite (Cholesky info 0)
+    after every step."""
+    from alan_tpu_torch import train
+    problem, ps = _corrq_problem()
+    step, state = train.qem(problem, K_COVID, lr=LR_QEM)
+    phase = "covid_corrq_main_path"
+    state, launches, res, prof = _train_path(
+        phase, step, state, K_COVID, ["smallk_fwd", "smallk_bwd"],
+        {"model": "covid_corr_q", "nRs": ps["nRs"], "nDs_train": ps["nDs"],
+         "chains": ps["nRs"] * K_COVID}, check=_cholesky_info)
+    per_step = {k: v / STEPS for k, v in launches.items() if v}
+    ok = per_step.get("smallk_fwd") == 3 and per_step.get("smallk_bwd") == 3
+    if not ok:
+        fail(phase, f"chain launches a step {per_step}, wanted 3 + 3")
+    emit({"phase": phase, "summary": True, "ms_per_step": res["ms_per_step"],
+          "device_busy_ms_per_step": prof["device_busy_ms"] / prof["steps"],
+          "device_idle_share_unprofiled": prof["device_idle_share_unprofiled"],
+          "peak_mem_gb": res["peak_mem_gb"], "launches_per_step": per_step,
+          "ok": ok and res["ok"]})
+    return problem, step, state, launches
+
+
+def phase_scan_covid_corrq_k30(problem):
+    """Covid corr_Q QEM at full size, K=30, 5 and 20 steps captured: 3
+    forward and 3 backward chain launches in each replay, and the
+    MultivariateNormal's factorisation inside the graph."""
+    from alan_tpu_torch import train
+    step, state0 = train.qem(problem, K_COVID, lr=LR_QEM)
+    res, launches = _scan_phase("scan_covid_corrq_k30", step, state0, SCAN_COVID_STEPS,
+                                4 * SCAN_COVID_STEPS, ["smallk_fwd", "smallk_bwd"],
+                                {"model": "covid_corr_q", "K": K_COVID},
+                                per_replay={"smallk_fwd": 3, "smallk_bwd": 3})
+    return {"scan_covid_corrq_k30": (launches, res["replays"])}
+
+
 def nvidia_smi_clocks():
     """The card's SM clock, power draw and power limit, sampled now."""
     out = subprocess.run(
@@ -2307,6 +2733,8 @@ def main():
     lowrank = phase_kernels()
     smallk = phase_chain_kernels()
     fused = phase_fused_kernel()
+    phase_families_cuda()
+    fam_launches, fam_ms = phase_lowrank_families_k1000()
     problem, step, state, ml_launches = phase_main_path()
     phase_cross_check("cross_check", problem, step, state, K_MAIN,
                       {"ALAN_TPU_NO_LAZY_LOWRANK": "1"})
@@ -2341,6 +2769,11 @@ def main():
                            {"ALAN_TPU_NO_SMALLK_CHAIN": "1"},
                            sample=_rws_draws(problem, state, K_COVID))
     del problem, state
+    problem, step, state, corrq_launches = phase_covid_corrq_main_path()
+    phase_cross_check("covid_corrq_cross_check", problem, step, state, K_COVID,
+                      {"ALAN_TPU_NO_SMALLK_CHAIN": "1"})
+    graph_launches.update(phase_scan_covid_corrq_k30(problem))
+    del problem, step, state
     ar1_launches = phase_ar1_large_k()
     ar1_post_launches = phase_ar1_ffbs_k1000()
     graph_launches.update(phase_scan_ar1_k1000())
@@ -2360,6 +2793,10 @@ def main():
              launches=ml_launches["lowrank_fwd"], vi_launches=vi_launches["lowrank_fwd"],
              posterior_launches={k: v["lowrank_fwd"] for k, v in post_launches.items()},
              graph_launches=graphed("lowrank_fwd"),
+             families_launches=fam_launches["lowrank_fwd"],
+             families_ms={k: {m: v[m] for m in ("F", "fwd_ms", "plain_fwd_ms",
+                                                 "fwd_bound_tc_ms")}
+                          for k, v in fam_ms.items()},
              library_ms=None, **lowrank["fwd"]),
         dict(name="lowrank_lse_bwd", route="cuda",
              source="alan_tpu_torch/csrc/lowrank_lse.cu",
@@ -2371,16 +2808,24 @@ def main():
                  k: {m: v[f"lowrank_bwd_{m}"] for m in ("dD", "dU", "dV")}
                  for k, v in post_launches.items()},
              graph_launches={m: graphed(f"lowrank_bwd_{m}") for m in ("dD", "dU", "dV")},
+             families_launches_by_mode={m: fam_launches[f"lowrank_bwd_{m}"]
+                                        for m in ("dD", "dU", "dV")},
+             families_ms={k: {m: v[m] for m in ("F", "bwd_dD_ms", "bwd_all_grads_ms",
+                                                 "bwd_dD_bound_tc_ms",
+                                                 "bwd_all_grads_bound_tc_ms")}
+                          for k, v in fam_ms.items()},
              library_ms=None, **lowrank["bwd"]),
         dict(name="smallk_logmmexp_fwd", route="cuda", source=smallk_src,
              replaces="alan_tpu/ops/pallas_smallk.py:66",
              launches=covid_launches["smallk_fwd"], rws_launches=rws_launches["smallk_fwd"],
+             corrq_launches=corrq_launches["smallk_fwd"],
              posterior_launches={k: v["smallk_fwd"] for k, v in covid_post_launches.items()},
              graph_launches=graphed("smallk_fwd"),
              library_ms=None, **smallk["fwd"]),
         dict(name="smallk_logmmexp_bwd", route="cuda", source=smallk_src,
              replaces="alan_tpu/ops/pallas_smallk.py:80",
              launches=covid_launches["smallk_bwd"], rws_launches=rws_launches["smallk_bwd"],
+             corrq_launches=corrq_launches["smallk_bwd"],
              posterior_launches={k: v["smallk_bwd"] for k, v in covid_post_launches.items()},
              graph_launches=graphed("smallk_bwd"),
              library_ms=None, **smallk["bwd"]),

@@ -36,7 +36,14 @@ and no JAX it runs without the suite's conftest:
 * ``train.scan_steps`` (a captured CUDA graph) against the eager loop on
   small grouped MovieLens, QEM and VI through the lowrank kernels, and
   ``vmap_runs``'s rows against it; an optimizer that cannot be captured is
-  refused.
+  refused;
+* the factored forms of the LogNormal, Exponential, Gamma, Chi2 and Beta
+  (rank F = 2, 1, 2, 2, 2) contracted by the lowrank kernels against their
+  materialised form on the card, value and the gradients of x, of the
+  parameters and of an x-side term; the kernels at F = 1 and 2 among the
+  cases above;
+* covid with its corr_Q proposal (a MultivariateNormal, whose Cholesky
+  factor the graph holds): ``scan_steps`` against the eager loop.
 """
 import numpy as np
 import pytest
@@ -67,6 +74,10 @@ CASES = [
     ((1, 6, 300, 90, 36), "cancellation"),   # Normal factors, terms 1e2-1e4 x the score
     ((1, 2, 40, 30, 104), False),    # one chunk forward and dD, two with dU / dV
     ((1, 3, 130, 70, 150), False),   # F in shared-memory chunks in every mode
+    ((1, 300, 1000, 1000, 1), False),  # the Exponential's factor at K=1000
+    ((1, 300, 1000, 1000, 2), False),  # the Gamma's, Chi2's, Beta's and LogNormal's
+    ((1, 7, 203, 77, 1), False),     # F = 1 off the tiles
+    ((1, 7, 203, 77, 2), True),      # F = 2 off the tiles, -inf rows
 ]
 
 
@@ -459,3 +470,76 @@ def test_scan_steps_refuses_an_uncapturable_optimizer(card, optimizer, match):
     step, state0 = train.vi(prob, 10, device=card, optimizer=optimizer)
     with pytest.raises(ValueError, match=match):
         train.scan_steps(step, 2)(state0, torch.Generator(device=card).manual_seed(0))
+
+
+# ---- the factored families and covid corr_Q ------------------------------------------
+
+def _family_factor(family, card, K=200, P=30, seed=5):
+    """x over (K_z, p), the parameters over K_g, an x-side term; all carry
+    a gradient."""
+    rng = np.random.default_rng(seed)
+    pos = lambda *s, lo=0.3: np.abs(rng.standard_normal(s)) + lo
+    if family == "LogNormal":
+        x, params = np.exp(rng.standard_normal((K, P)) * 0.5), {
+            "loc": rng.standard_normal(K) * 0.3, "scale": pos(K, lo=0.4)}
+    elif family == "Exponential":
+        x, params = pos(K, P), {"rate": pos(K, lo=0.5)}
+    elif family == "Gamma":
+        x, params = pos(K, P), {"concentration": pos(K, lo=1.0), "rate": pos(K, lo=0.5)}
+    elif family == "Chi2":
+        x, params = pos(K, P), {"df": pos(K, lo=1.0)}
+    else:
+        u = pos(K, P)
+        x, params = u / (u + 1.2), {"concentration1": pos(K, lo=0.8),
+                                    "concentration0": pos(K, lo=0.8)}
+    mk = lambda a, dims: DT(torch.tensor(a, dtype=torch.float32, device=card,
+                                         requires_grad=True), dims)
+    return (mk(x, ("K_z", "p")), {k: mk(v, ("K_g",)) for k, v in params.items()},
+            mk(rng.standard_normal((K, P)), ("K_z", "p")))
+
+
+@pytest.mark.parametrize("family", ["LogNormal", "Exponential", "Gamma", "Chi2", "Beta"])
+def test_factored_family_contract_matches_materialised(card, monkeypatch, family):
+    from alan_tpu_torch.dims import logsumexp_dims
+    from alan_tpu_torch.distributions import families as tfam
+    from alan_tpu_torch.distributions.dimdist import DimDist
+    x, params, side = _family_factor(family, card)
+    leaves = [x.data, *(v.data for v in params.values()), side.data]
+    monkeypatch.setenv("ALAN_TPU_LOWRANK_MIN", "1")
+    monkeypatch.setenv("ALAN_TPU_LAZY_LOWRANK", "1")
+    lazy = DimDist(tfam.FAMILIES[family], **params).log_prob(x)
+    assert getattr(lazy, "__lazy_dt__", False)
+    assert lazy.U.pos_shape == ({"Exponential": 1}.get(family, 2),)
+    launches = (tk.FWD_LAUNCHES, tk.BWD_LAUNCHES)
+    got = lazy.contract(("K_z",), [side]).with_dims_front(["p", "K_g"]).data
+    # the materialised form below reuses the factor's operands
+    ggot = torch.autograd.grad(got.sum(), leaves, retain_graph=True)
+    torch.cuda.synchronize()
+    assert (tk.FWD_LAUNCHES, tk.BWD_LAUNCHES) == (launches[0] + 1, launches[1] + 1)
+    want = logsumexp_dims(lazy.materialize() + side, ("K_z",)).with_dims_front(["p", "K_g"]).data
+    gwant = torch.autograd.grad(want.sum(), leaves)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    for a, b in zip(ggot, gwant):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_covid_corrq_scan_matches_eager(card):
+    """Small covid with its corr_Q proposal: ``scan_steps`` (the
+    MultivariateNormal's Cholesky factor inside the captured graph) against
+    the eager loop, ELBOs 1e-5 relative, state 1e-4; the chain kernels
+    launch inside the graph."""
+    from alan_tpu_torch.models import covid
+    ps, _, data, _, cov, _ = covid.load_data_covariates(seed=0, nRs=8, nDs=30, device=card)
+    prob = covid.generate_problem(ps, data, cov, "qem", corr_Q=True, device=card)
+    step, state0 = train.qem(prob, 10, lr=0.1, device=card)
+    n = 3
+    st_e, el_e = train._eager(step, n, state0, torch.Generator(device=card).manual_seed(2))
+    launches = tsk.FWD_LAUNCHES
+    st_s, el_s = train.scan_steps(step, n)(state0, torch.Generator(device=card).manual_seed(2))
+    torch.cuda.synchronize()
+    assert tsk.FWD_LAUNCHES > launches
+    torch.testing.assert_close(el_s, el_e, rtol=1e-5, atol=0)
+    for x, y in zip(train._flatten(st_s)[0], train._flatten(st_e)[0]):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+    cov_q = st_s[1]["qem_params"]["CM_alpha_covariance_matrix"].data
+    assert int(torch.linalg.cholesky_ex(cov_q)[1]) == 0

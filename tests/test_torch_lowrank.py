@@ -7,6 +7,13 @@
   case: rtol/atol 1e-5 forward, rtol 1e-4 / atol 1e-5 gradients.
 * ``LowRankDT`` materialize / contract, on the x side and the parameter
   side, against ``alan_tpu``'s ``LowRankDT``.
+* The factored forms of the LogNormal, Exponential, Gamma, Chi2 and Beta
+  (rank F = 1 or 2 per positional element): ``lowrank_logprob`` and the
+  lazy ``materialize()`` against ``alan_tpu``'s ``lowrank_logprob`` and the
+  elementwise density (2e-4, as ``tests/test_ops.py:139-168``), the lazy
+  contraction and its gradients against the materialised route, and the
+  routing (``ALAN_TPU_NO_LOWRANK_LOGPROB``, ``ALAN_TPU_LOWRANK_MIN``) of
+  each family against ``alan_tpu``'s.
 * The precision of the CUDA kernels' arithmetic, emulated in torch by
   ``scripts/torch_lowrank_precision.py`` (3xTF32 scores, the backward's
   weights normalised by the rounding of ``out``) on the Normal's factors
@@ -158,6 +165,116 @@ def test_contract_param_side_matches_jax():
         assert_dt_close(jz.contract(("K_w",), []), fused, 1e-5, 1e-5)
     assert_dt_close(jd.logsumexp_dims(jz.materialize(), ("K_w",)), fused,
                     1e-5, 1e-5)
+
+
+FACTORED = ["LogNormal", "Exponential", "Gamma", "Chi2", "Beta"]
+
+
+def _family_pair(family, seed=11):
+    """x over (K_z, p), parameters over (K_g, p), positional axis 4, in
+    both packages, as ``tests/test_ops.py:139-168`` builds them."""
+    rng = np.random.default_rng(seed)
+    sizes = {"K_z": 6, "K_g": 5, "p": 3}
+
+    def positive(dims, s=1.0):
+        shape = tuple(sizes[d] for d in dims) + (4,)
+        return (np.abs(rng.standard_normal(shape)) * s + 0.3).astype(np.float32), dims
+    if family == "LogNormal":
+        x = positive(("K_z", "p"), 2.0)
+        params = {"loc": ((rng.standard_normal((5, 3, 4))).astype(np.float32), ("K_g", "p")),
+                  "scale": positive(("K_g", "p"), 0.5)}
+    elif family == "Exponential":
+        x = positive(("K_z", "p"))
+        params = {"rate": positive(("K_g", "p"))}
+    elif family == "Gamma":
+        x = positive(("K_z", "p"))
+        params = {"concentration": positive(("K_g", "p")), "rate": positive(("K_g", "p"))}
+    elif family == "Chi2":
+        x = positive(("K_z", "p"))
+        params = {"df": positive(("K_g", "p"), 3.0)}
+    else:  # Beta
+        u, dims = positive(("K_z", "p"))
+        x = ((u / (u + 1.2)).astype(np.float32), dims)
+        params = {"concentration1": positive(("K_g", "p")),
+                  "concentration0": positive(("K_g", "p"))}
+    j = (jax_dt(x[0], *x[1]), {k: jax_dt(a, *d) for k, (a, d) in params.items()})
+    t = (td.DT(torch.as_tensor(x[0]), x[1]),
+         {k: td.DT(torch.as_tensor(a), d) for k, (a, d) in params.items()})
+    return j, t
+
+
+def _canonical(family, params, fams):
+    return fams.FAMILIES[family].canonicalize(dict(params))
+
+
+@pytest.mark.parametrize("family", FACTORED)
+def test_factored_family_matches_jax(family):
+    from alan_tpu.distributions import families as jfam
+    from alan_tpu.distributions.dimdist import DimDist as JDimDist
+    from alan_tpu_torch.distributions import families as tfam
+    (jx, jp), (tx, tp) = _family_pair(family)
+    jp, tp = _canonical(family, jp, jfam), _canonical(family, tp, tfam)
+    want = jlr.lowrank_logprob(family, jx, jp)
+    with Env(ALAN_TPU_NO_LOWRANK_LOGPROB=1):
+        elementwise = JDimDist(jfam.FAMILIES[family], **jp).log_prob(jx)
+    assert_dt_close(want, td.DT(torch.as_tensor(np.array(
+        elementwise.with_dims_front(want.dims).data)), want.dims), 2e-4, 2e-4)
+    assert_dt_close(want, tlr.lowrank_logprob(family, tx, tp), 2e-4, 2e-4)
+    lazy = tlr.lowrank_logprob_lazy(family, tx, tp)
+    F = {"Exponential": 1}.get(family, 2) * 4
+    assert lazy.U.pos_shape == (F,) and lazy.V.pos_shape == (F,)
+    assert (lazy.x_side is not None) == (family == "LogNormal")
+    assert_dt_close(want, lazy.materialize(), 2e-4, 2e-4)
+    assert_dt_close(jlr.lowrank_logprob_lazy(family, jx, jp).materialize(),
+                    lazy.materialize(), 2e-4, 2e-4)
+
+
+@pytest.mark.parametrize("family", FACTORED)
+def test_factored_family_contract_matches_materialised(family):
+    """The lazy factor contracted over K_z (the plain version of the
+    kernels on the CPU) against the log-sum-exp of its materialised form,
+    value 1e-5 and the gradients of the parameters and of x 1e-4, and
+    DimDist reaches the lazy form under the knobs."""
+    from alan_tpu_torch.distributions import families as tfam
+    from alan_tpu_torch.distributions.dimdist import DimDist as TDimDist
+    _, (tx, tp) = _family_pair(family)
+    leaves = [v.data.requires_grad_(True) for v in (tx, *tp.values())]
+    tpc = _canonical(family, tp, tfam)
+    with Env(**PORT_LAZY):
+        lazy = TDimDist(tfam.FAMILIES[family], **tp).log_prob(tx)
+    assert getattr(lazy, "__lazy_dt__", False)
+    calls = tlr.CONTRACT_CALLS
+    fused = lazy.contract(("K_z",), [])
+    assert tlr.CONTRACT_CALLS == calls + 1
+    dense = td.logsumexp_dims(tlr.lowrank_logprob(family, tx, tpc), ("K_z",))
+    fused = fused.with_dims_front(list(dense.dims))
+    torch.testing.assert_close(fused.data, dense.data, rtol=1e-5, atol=1e-5)
+    g_f = torch.autograd.grad(fused.data.sum(), leaves)
+    g_d = torch.autograd.grad(dense.data.sum(), leaves)
+    for a, b in zip(g_f, g_d):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("family", FACTORED)
+@pytest.mark.parametrize("env,expect", [
+    (dict(ALAN_TPU_LOWRANK_MIN=1), True),
+    (dict(ALAN_TPU_LOWRANK_MIN=10 ** 9), False),
+    (dict(ALAN_TPU_LOWRANK_MIN=1, ALAN_TPU_NO_LOWRANK_LOGPROB=1), False),
+])
+def test_factored_family_routing_matches_jax(family, env, expect):
+    from alan_tpu.distributions import families as jfam
+    from alan_tpu_torch.distributions import families as tfam
+    (jx, jp), (tx, tp) = _family_pair(family)
+    jp, tp = _canonical(family, jp, jfam), _canonical(family, tp, tfam)
+    with Env(**env):
+        assert tlr.lowrank_applicable(family, tx, tp, ("K_g", "p")) == expect
+        assert jlr.lowrank_applicable(family, jx, jp, ("K_g", "p")) == expect
+
+
+def test_lowrank_families_are_alan_tpus():
+    assert tlr.LOWRANK_FAMILIES == jlr.LOWRANK_FAMILIES
+    assert not tlr.lowrank_applicable("Poisson", td.DT(torch.zeros(3), ("K_z",)),
+                                      {"rate": td.DT(torch.ones(4), ("K_g",))}, ("K_g",))
 
 
 @pytest.mark.parametrize("sizes,env,expect", [

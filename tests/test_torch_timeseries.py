@@ -117,7 +117,8 @@ def test_timeseries_q_draws_and_prediction_raise():
     """The guards that stay now that K > 1 draws and the roll-forward are
     ported: the init must be named by a string, the transition must be a
     distribution without sample_shape, an init outside the parent plate
-    raises at the draw, and covid's corr_Q (a MultivariateNormal) raises."""
+    raises at the draw, and covid's corr_Q (a MultivariateNormal proposal)
+    raises without a QEM Q, as in alan_tpu."""
     with pytest.raises(Exception, match="string"):
         Timeseries(3, Normal(0, 1))
     with pytest.raises(Exception, match="distribution"):
@@ -130,7 +131,7 @@ def test_timeseries_q_draws_and_prediction_raise():
         ts.sample({"init": bad_init}, torch.Generator(), False, ["T"], "K_ts",
                   {"T": 3, "K_ts": 4})
     ps, _, data, _, cov, _ = tcovid.load_data_covariates(1, nRs=2, nDs=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="MultivariateNormal"):
+    with pytest.raises(ValueError, match="Q_param_type='qem'"):
         tcovid.generate_problem(ps, data, cov, corr_Q=True, device="cpu")
 
 
