@@ -75,6 +75,21 @@
 // * The epilogue: the log in registers, stored straight to out; the
 //   product never reaches device memory.
 //
+// The joint-shift repair.  With separate shifts an entry whose row of A
+// and column of B take their maxes at different k loses every term: c is 0
+// and out is log(FLT_MIN) plus the shifts.  logmmexp_fixup_kernel, always
+// launched after the product, reads c back from out (an entry is flagged
+// where out - amax - bmax = log(c + FLT_MIN) lies below LOG_JOINT_BELOW =
+// ln 2^-60, so terms below FLT_MIN are under 2^-66 of the sum), writes the
+// flag of every entry, and recomputes a flagged entry whose joint max m =
+// max_k(A[b, m, k] + B[b, k, n]) is finite as m + log sum_k exp(A + B - m),
+// one thread an entry, its exponents taken against the entry's largest
+// term (al + be + log sum_k exp((A - al) + (B - be))), which keeps them
+// exact where the log-densities are large.  logmmexp_fixup_bwd_kernel adds
+// the gradients of the flagged entries, g exp(A + B - out) by the same
+// differences, which the backward's torch ops leave out.  Unflagged entries
+// are untouched.
+//
 // ptxas (sm_90a, -O3) and the SASS: see scripts/torch_logmmexp_probe.py
 // and PERF.md.
 //
@@ -363,6 +378,92 @@ int launch_product(const float* split, const float* amax, const float* bmax, flo
   return (int)cudaGetLastError();
 }
 
+constexpr float LOG_JOINT_BELOW = -41.588830833596715f;   // ln 2^-60
+constexpr int FIX_THREADS = 256;
+
+// The reference pair of an entry whose row of A is a and column of B is bc
+// (stride N): the terms at the first k of max_k(a_k + b_k).  False where
+// that max is not finite.  Differences taken against a term of the same
+// entry keep the exponents exact where the terms that matter are close.
+__device__ bool joint_pair(const float* a, const float* bc, int K, int N, float* al,
+                           float* be) {
+  float mx = -INFINITY;
+  int ks = 0;
+  for (int k = 0; k < K; ++k) {
+    const float v = a[k] + bc[(long long)k * N];
+    if (v > mx) { mx = v; ks = k; }
+  }
+  *al = a[ks];
+  *be = bc[(long long)ks * N];
+  return isfinite(mx);
+}
+
+__device__ float joint_sum(const float* a, const float* bc, int K, int N, float al,
+                           float be) {
+  float sum = 0.f;
+  for (int k = 0; k < K; ++k) sum += expf((a[k] - al) + (bc[(long long)k * N] - be));
+  return sum;
+}
+
+// e = (b M + i) N + j over nb M N entries, a grid-stride loop.
+__global__ void __launch_bounds__(FIX_THREADS)
+logmmexp_fixup_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                      const float* __restrict__ amax, const float* __restrict__ bmax,
+                      float* __restrict__ out, unsigned char* __restrict__ flags,
+                      unsigned long long* count, int M, int K, int N, long long total) {
+  unsigned joints = 0;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long bi = e / N;
+    const int j = (int)(e - bi * N), b = (int)(bi / M);
+    const float o = out[e];
+    const bool flag = o - amax[bi] - bmax[(long long)b * N + j] < LOG_JOINT_BELOW;
+    flags[e] = flag;
+    if (!flag) continue;
+    const float* a = A + bi * K;
+    const float* bc = B + (long long)b * K * N + j;
+    float al, be;
+    if (!joint_pair(a, bc, K, N, &al, &be)) continue;
+    out[e] = al + be + logf(joint_sum(a, bc, K, N, al, be));
+    ++joints;
+  }
+  if (count && joints) atomicAdd(count, (unsigned long long)joints);
+}
+
+// dA[b, i, k] and dB[b, k, j] gain g[e] exp(A[b, i, k] + B[b, k, j] - out[e])
+// for each flagged entry e = (b, i, j) whose joint max is finite, the
+// exponent taken against the entry's reference pair.
+__global__ void __launch_bounds__(FIX_THREADS)
+logmmexp_fixup_bwd_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                          const float* __restrict__ g,
+                          const unsigned char* __restrict__ flags, float* dA, float* dB,
+                          int M, int K, int N, long long total) {
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    if (!flags[e] || g[e] == 0.f) continue;
+    const long long bi = e / N;
+    const int j = (int)(e - bi * N), b = (int)(bi / M);
+    const float ge = g[e];
+    const float* a = A + bi * K;
+    const float* bc = B + (long long)b * K * N + j;
+    float al, be;
+    if (!joint_pair(a, bc, K, N, &al, &be)) continue;
+    const float L = logf(joint_sum(a, bc, K, N, al, be));
+    for (int k = 0; k < K; ++k) {
+      const float w = ge * expf((a[k] - al) + (bc[(long long)k * N] - be) - L);
+      if (w != 0.f) {
+        atomicAdd(dA + bi * K + k, w);
+        atomicAdd(dB + ((long long)b * K + k) * N + j, w);
+      }
+    }
+  }
+}
+
+int fix_grid(long long total) {
+  const long long blocks = (total + FIX_THREADS - 1) / FIX_THREADS;
+  return (int)(blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16);
+}
+
 }  // namespace
 
 extern "C" {
@@ -398,6 +499,31 @@ int logmmexp_product(const float* split, const float* amax, const float* bmax, f
   cudaStream_t st = (cudaStream_t)stream;
   return bn == 128 ? launch_product<128>(split, amax, bmax, out, nb, M, N, L, st)
                    : launch_product<64>(split, amax, bmax, out, nb, M, N, L, st);
+}
+
+// After logmmexp_product: flags (nb M N bytes) of every entry, out's
+// flagged entries recomputed with the joint shift; *count (device memory,
+// may be null) gains the entries that took it.
+int logmmexp_fixup(const float* A, const float* B, const float* amax, const float* bmax,
+                   float* out, unsigned char* flags, unsigned long long* count, int nb,
+                   int M, int K, int N, void* stream) {
+  if (nb < 1 || M < 1 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)nb * M * N;
+  logmmexp_fixup_kernel<<<fix_grid(total), FIX_THREADS, 0, (cudaStream_t)stream>>>(
+      A, B, amax, bmax, out, flags, count, M, K, N, total);
+  return (int)cudaGetLastError();
+}
+
+// The gradients of the flagged entries, added to dA (nb, M, K) and dB
+// (nb, K, N).
+int logmmexp_fixup_bwd(const float* A, const float* B, const float* g,
+                       const unsigned char* flags, float* dA, float* dB, int nb, int M,
+                       int K, int N, void* stream) {
+  if (nb < 1 || M < 1 || K < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)nb * M * N;
+  logmmexp_fixup_bwd_kernel<<<fix_grid(total), FIX_THREADS, 0, (cudaStream_t)stream>>>(
+      A, B, g, flags, dA, dB, M, K, N, total);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

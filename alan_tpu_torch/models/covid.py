@@ -146,13 +146,14 @@ def get_P(platesizes, covariates, corr_CM=False, device="cuda"):
 
 
 def generate_problem(platesizes, data, covariates, Q_param_type="opt",
-                     corr_Q=False, device="cuda"):
+                     corr_Q=False, device="cuda", get_P=get_P, wearing_scale=1.0):
     """The covid problem with a factorised Normal Q (``Q_param_type``
     ``"opt"`` or ``"qem"``; ``examples/models/covid.py:121-170``).  The
     JAX benchmark's ``covid_full_qem_K30`` is ``"qem"``.  ``corr_Q`` (QEM
     only) gives CM_alpha a full-covariance MultivariateNormal proposal:
     under a factorised Q the NPI coefficients stay biased at every K, as
-    ``examples/models/covid.py:121-131`` sets out."""
+    ``examples/models/covid.py:121-131`` sets out.  ``get_P`` and the
+    initial scale of Wearing_alpha's proposal are covid_reparam's hooks."""
     if Q_param_type not in ("opt", "qem"):
         raise ValueError(f"Q_param_type must be 'opt' or 'qem', not {Q_param_type!r}")
     P = get_P(platesizes, covariates, corr_CM=corr_Q, device=device)
@@ -176,7 +177,7 @@ def generate_problem(platesizes, data, covariates, Q_param_type="opt",
     Q = Plate(
         npis=Group(
             CM_alpha=cm_alpha_Q,
-            Wearing_alpha=q(),
+            Wearing_alpha=q(scale_init=wearing_scale),
             Mobility_alpha=q(),
             RegionR=q(loc_init=1.0),
             InitialSize_log_mean=q(loc_init=math.log(1000)),

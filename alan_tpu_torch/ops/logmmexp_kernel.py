@@ -28,6 +28,19 @@ floats.  Its tiles are 128 rows by :func:`tile_n` columns.  The backward
 stays in torch ops inside the ``autograd.Function``, as ``alan_tpu``'s is
 plain jnp (``pallas_logmmexp.py:82-94``).
 
+The joint-shift repair.  The separate shifts lose an entry whose row of A
+and column of B peak at different k: every term underflows, ``c`` is 0,
+the value is ``log(tiny)`` plus the shifts and the gradient 0.  An entry
+whose ``c`` falls below :data:`JOINT_BELOW` (2^-60: terms below ``tiny``
+are then under 2^-66 of the sum) and whose joint max ``max_k(a_ik +
+b_kj)`` is finite is recomputed with the joint shift, against its largest
+term (:func:`joint_repair`); every other entry is bitwise what it was.  On the
+card a fix-up kernel follows the product: it reads ``log(c + tiny)`` back
+from the output (flagged below ``ln 2^-60``), keeps the flags for the
+backward and recomputes the flagged entries; the backward's torch ops leave
+the flagged entries out and a second fix-up kernel adds their gradients,
+``g exp(a_ik + b_kj - out_ij)``.
+
 On CPU tensors the plain version, :func:`reference_logmmexp`, runs instead,
 under ordinary autograd.  A CUDA tensor gets the kernel or an error.
 """
@@ -41,9 +54,18 @@ import torch.nn.functional as F
 from .native import INT, PTR, check_status, load, ptr, stream
 
 #: launches of the fused kernel (one per wrapper call that reaches the card,
-#: pre-pass and product together; the plain version on the CPU does not
-#: count)
+#: pre-pass, product and fix-up together; the plain version on the CPU does
+#: not count) and of the backward's fix-up kernel
 LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+#: ``c`` below which an entry takes the joint shift (the fused kernel's
+#: fix-up compares ``log(c + tiny)`` with ``ln 2^-60``)
+JOINT_BELOW = 2.0 ** -60
+#: where set to a one-element int64 tensor, the plain versions and the
+#: fix-up kernels of this module and ``smallk_kernel`` add to it the
+#: entries that took the joint shift (the kernels only on its device)
+JOINT_COUNT = None
 
 #: the kernel's layout (``csrc/logmmexp.cu``): rows of A a tile, k a stage
 #: (and a fresh tensor-core sum), the power of two the exponentials carry
@@ -58,6 +80,8 @@ _SIGNATURES = {
     "logmmexp_scratch_floats": [INT, INT, INT, INT, INT],
     "logmmexp_prepass": [PTR] * 5 + [INT] * 5 + [PTR],
     "logmmexp_product": [PTR] * 4 + [INT] * 5 + [PTR],
+    "logmmexp_fixup": [PTR] * 7 + [INT] * 4 + [PTR],
+    "logmmexp_fixup_bwd": [PTR] * 6 + [INT] * 4 + [PTR],
 }
 
 
@@ -99,13 +123,111 @@ def _shifts(A, B):
     return a_max, b_max
 
 
+def count_joint(n):
+    """Add ``n`` (a tensor or an int) to :data:`JOINT_COUNT` where it is set."""
+    if JOINT_COUNT is not None:
+        JOINT_COUNT.add_(torch.as_tensor(n, device=JOINT_COUNT.device).to(torch.int64))
+
+
+def joint_counter(device):
+    """:data:`JOINT_COUNT` for a kernel on ``device``, else None."""
+    if JOINT_COUNT is not None and JOINT_COUNT.device == torch.device(device):
+        return JOINT_COUNT
+    return None
+
+
+#: elements of the (rows, K, N) cross sums that the plain repair forms at once
+_JOINT_CHUNK = 1 << 24
+
+
+def _joint_rows(a, b):
+    """Rows ``a`` (r, K) against their operators ``b`` (r, K, N): the
+    reference term of each entry, the first argmax t* of ``a_t + b_tn`` (al
+    = a_t*, be = b_t*n), the exponents ``e = (a_t - al) + (b_tn - be)``
+    (r, K, N) and whether the max is finite."""
+    m, t = (a[:, :, None] + b).max(dim=1)
+    finite = torch.isfinite(m)
+    al = torch.where(finite, a.gather(1, t), 0.0)
+    be = torch.where(finite, b.gather(1, t[:, None, :])[:, 0], 0.0)
+    return al, be, (a[:, :, None] - al[:, None, :]) + (b - be[:, None, :]), finite
+
+
+class _JointValues(torch.autograd.Function):
+    """The joint-shift value of every entry of ``A @ B`` in log space, A
+    (n, M, K) and B (n, K, N): ``al + be + log sum_t exp(e)``; rows taken
+    in chunks of at most :data:`_JOINT_CHUNK` cross-sum elements, in the
+    backward again, so that no (n, M, K, N) tensor is ever held.  ->
+    (values, finite), values 0 where no term is finite."""
+
+    @staticmethod
+    def forward(ctx, A, B):
+        n, M, K = A.shape
+        N = B.shape[-1]
+        rows, pair = A.reshape(n * M, K), torch.arange(n, device=A.device).repeat_interleave(M)
+        vals = torch.empty((n * M, N), dtype=A.dtype, device=A.device)
+        finite = torch.empty((n * M, N), dtype=torch.bool, device=A.device)
+        step = max(1, _JOINT_CHUNK // (K * N))
+        for r in range(0, n * M, step):
+            al, be, e, fin = _joint_rows(rows[r:r + step], B[pair[r:r + step]])
+            vals[r:r + step] = torch.where(fin, al + be + torch.log(torch.exp(e).sum(1)), 0.0)
+            finite[r:r + step] = fin
+        ctx.save_for_backward(A, B)
+        ctx.mark_non_differentiable(finite)
+        return vals.reshape(n, M, N), finite.reshape(n, M, N)
+
+    @staticmethod
+    def backward(ctx, g, _):
+        A, B = ctx.saved_tensors
+        n, M, K = A.shape
+        N = B.shape[-1]
+        rows, pair = A.reshape(n * M, K), torch.arange(n, device=A.device).repeat_interleave(M)
+        g = g.reshape(n * M, N)
+        dA, dB = torch.zeros_like(rows), torch.zeros_like(B)
+        step = max(1, _JOINT_CHUNK // (K * N))
+        for r in range(0, n * M, step):
+            _, _, e, fin = _joint_rows(rows[r:r + step], B[pair[r:r + step]])
+            L = torch.where(fin, torch.log(torch.exp(e).sum(1)), 0.0)
+            w = torch.where(fin[:, None, :], torch.exp(e - L[:, None, :]), 0.0)
+            w = w * g[r:r + step, None, :]                      # (r, K, N)
+            dA[r:r + step] = w.sum(2)
+            dB.index_add_(0, pair[r:r + step], w)
+        return dA.reshape(n, M, K), dB
+
+
+def joint_repair(out, C, A, B):
+    """``out = log(C + tiny) + shifts`` of ``A @ B`` in log space, with every
+    entry whose ``C`` is below :data:`JOINT_BELOW` and whose joint max is
+    finite recomputed with the joint shift, against its largest term
+    (``al + be + log sum_t exp((a_t - al) + (b_t - be))``, the shifts held
+    constant: the differences stay exact where the terms that matter are
+    close, however large the log-densities).  The batch axes of A and B
+    broadcast; only products with a flagged entry are recomputed, and the
+    plain version synchronises with the host to find them.
+    Differentiable; unflagged entries are bitwise ``out``'s."""
+    flag = C.detach() < JOINT_BELOW
+    if not bool(flag.any()):
+        return out
+    *batch, M, N = out.shape
+    K = A.shape[-1]
+    A3 = A.expand(*batch, M, K).reshape(-1, M, K)
+    B3 = B.expand(*batch, K, N).reshape(-1, K, N)
+    f3, out3 = flag.reshape(-1, M, N), out.reshape(-1, M, N)
+    pairs = f3.flatten(1).any(1).nonzero()[:, 0]
+    vals, finite = _JointValues.apply(A3[pairs], B3[pairs])
+    take = f3[pairs] & finite
+    count_joint(take.sum())
+    out3 = out3.index_put((pairs,), torch.where(take, vals, out3[pairs]))
+    return out3.reshape(out.shape)
+
+
 def reference_logmmexp(A, B):
     """Plain PyTorch version: ``logsumexp_j(A[..., i, j] + B[..., j, k])``
     through max-shifted exponentials and one matmul (``alan_tpu``'s jnp
-    branch of ``ops.logmmexp.logmmexp``)."""
+    branch of ``ops.logmmexp.logmmexp``), then :func:`joint_repair`."""
     a_max, b_max = _shifts(A, B)
     C = torch.matmul(torch.exp(A - a_max), torch.exp(B - b_max))
-    return torch.log(C + torch.finfo(C.dtype).tiny) + a_max + b_max
+    out = torch.log(C + torch.finfo(C.dtype).tiny) + a_max + b_max
+    return joint_repair(out, C, A, B)
 
 
 # ---- the pre-pass's layout and plain version ------------------------------------
@@ -243,30 +365,62 @@ def _product(a_max, b_max, split, nb, M, K, N, bn):
     return out
 
 
+def _fixup(A, B, a_max, b_max, out):
+    """The forward fix-up kernel: out's flagged entries recomputed in place;
+    returns the flags (nb, M, N), bool."""
+    nb, M, K = A.shape
+    N = B.shape[2]
+    flags = torch.empty((nb, M, N), device=A.device, dtype=torch.bool)
+    with torch.cuda.device(A.device):
+        rc = _lib().logmmexp_fixup(ptr(A), ptr(B), ptr(a_max), ptr(b_max), ptr(out),
+                                   ptr(flags), ptr(joint_counter(A.device)),
+                                   nb, M, K, N, stream(A))
+    check_status(rc, "logmmexp_fixup")
+    return flags
+
+
 def _launch(A, B):
-    """The kernels on (nb, M, K) @ (nb, K, N) CUDA float32 operands."""
+    """The kernels on (nb, M, K) @ (nb, K, N) CUDA float32 operands: ->
+    (out, the fix-up's flags)."""
     global LAUNCHES
     nb, M, K, N = _check(A, B)
     bn = tile_n(nb, M, N, _sms(A.device))
-    out = _product(*_prepass(A, B, bn), nb, M, K, N, bn)
+    a_max, b_max, split = _prepass(A, B, bn)
+    out = _product(a_max, b_max, split, nb, M, K, N, bn)
+    flags = _fixup(A, B, a_max, b_max, out)
     LAUNCHES += 1
-    return out
+    return out, flags
+
+
+def _launch_bwd(A, B, flags, g):
+    """The backward on the card: the unflagged entries' gradients by torch
+    ops (``alan_tpu``'s plain jnp backward, ``pallas_logmmexp.py:82-94``),
+    the flagged entries' added by the fix-up kernel."""
+    global BWD_LAUNCHES
+    a_max, b_max = _shifts(A, B)
+    Ea, Eb = torch.exp(A - a_max), torch.exp(B - b_max)
+    G = (g / (torch.matmul(Ea, Eb) + _TINY)).masked_fill(flags, 0.0)
+    dA = Ea * torch.matmul(G, Eb.transpose(-1, -2))
+    dB = Eb * torch.matmul(Ea.transpose(-1, -2), G)
+    nb, M, K = A.shape
+    with torch.cuda.device(A.device):
+        rc = _lib().logmmexp_fixup_bwd(ptr(A), ptr(B), ptr(g), ptr(flags), ptr(dA), ptr(dB),
+                                       nb, M, K, B.shape[2], stream(A))
+    check_status(rc, "logmmexp_fixup_bwd")
+    BWD_LAUNCHES += 1
+    return dA, dB
 
 
 class _LogMMExp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, A, B):
-        ctx.save_for_backward(A, B)
-        return _launch(A, B)
+        out, flags = _launch(A, B)
+        ctx.save_for_backward(A, B, flags)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        A, B = ctx.saved_tensors
-        a_max, b_max = _shifts(A, B)
-        Ea, Eb = torch.exp(A - a_max), torch.exp(B - b_max)
-        G = g / (torch.matmul(Ea, Eb) + _TINY)
-        return (Ea * torch.matmul(G, Eb.transpose(-1, -2)),
-                Eb * torch.matmul(Ea.transpose(-1, -2), G))
+        return _launch_bwd(*ctx.saved_tensors, g.contiguous())
 
 
 def logmmexp_fused(A, B):

@@ -23,24 +23,38 @@ instead of seven levels):
   ``dA = ea * ((g / (c + tiny)) . eb^T)`` and ``dB = eb * (ea^T . (g / (c + tiny)))``
   level by level down to the segment's operators.
 
+The joint-shift repair (``logmmexp_kernel.joint_repair``).  An entry whose
+``c`` falls below ``JOINT_BELOW`` (2^-60) and whose joint max is finite
+takes the joint shift, at every tree level, inner ones included: covid's
+peaked transitions otherwise underflow to ``log(tiny)`` with a gradient of
+0.  On the card each fast kernel raises a flag per segment job where an
+entry fell below the threshold, and a fix-up kernel, launched after it
+every time, recomputes only the flagged segments from the launch's input
+(forward) or takes their gradients from the joint weights ``exp(a_ik +
+b_kj - out_ij)`` (backward).  Unflagged segments are bitwise what the fast
+kernels give.
+
 Each launch is one :class:`torch.autograd.Function` that saves only its own
 input.  The kernels take 1 <= K <= 128 (:data:`MAX_K`, the backward's
 shared memory at m = 1) and raise on anything else; the source note in
 ``smallk_logmmexp.cu`` has the design.
 
 On CPU tensors the plain version, :func:`reference_segment`, runs the same
-launch plan under ordinary autograd: the same tree order and the same
-finite-guarded shifts and ``log(c + tiny)`` as ``ops.logmmexp.logmmexp``.
+launch plan under ordinary autograd: the same tree order, the same
+finite-guarded shifts and ``log(c + tiny)`` as ``ops.logmmexp.logmmexp``,
+and the same joint-shift repair.
 A CUDA tensor gets the kernels or an error.
 """
 from __future__ import annotations
 
 import torch
 
+from .logmmexp_kernel import joint_counter, joint_repair
 from .native import INT, PTR, check_status, load, ptr, stream
 
-#: launches of the forward / backward kernel (one per entry of the launch
-#: plan that reaches the card; the plain version on the CPU does not count)
+#: launches of the forward / backward kernel, each with its fix-up (one per
+#: entry of the launch plan that reaches the card; the plain version on the
+#: CPU does not count)
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
@@ -60,9 +74,12 @@ SMEM_RESERVED = 1024
 _HEAD, _PAD = 4, 8   # floats before and after a kernel's layout (smallk_logmmexp.cu)
 
 _SIGNATURES = {
-    "smallk_segment_fwd": [PTR, PTR, INT, INT, INT, INT, INT, PTR],
-    "smallk_segment_bwd": [PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
+    "smallk_segment_fwd": [PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
+    "smallk_segment_bwd": [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
+    "smallk_fixup_fwd": [PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR],
+    "smallk_fixup_bwd": [PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR],
     "smallk_smem_bytes": [INT, INT, INT, INT],
+    "smallk_fixup_smem_bytes": [INT, INT, INT],
     "smallk_log_mismatches": [INT, INT, PTR, PTR],
 }
 
@@ -78,6 +95,16 @@ def segment_smem(K: int, m: int, backward: bool, direct: int) -> int:
     else:
         slots = (0 if direct else S) + (S // 2 if m >= 2 else 0)
     return 4 * (_HEAD + stage + slots * slot + S * K + _PAD)
+
+
+def fixup_smem(K: int, m: int, backward: bool) -> int:
+    """Bytes of shared memory a block of the forward or backward fix-up
+    takes: the segment's inner nodes, in the backward two buffers of
+    gradients, and a pair's scratch (``smallk_logmmexp.cu``)."""
+    S, KK = 1 << m, K * K
+    scratch = max(3 * KK, 2 * KK + 2 * K) if backward else 2 * KK + 2 * K
+    grads = ((S // 2 if m >= 2 else 0) + (S // 4 if m >= 3 else 0)) * KK if backward else 0
+    return 4 * ((S - 2) * KK + grads + scratch)
 
 
 def layout_for(K: int, m: int, backward: bool) -> int:
@@ -148,16 +175,21 @@ def _check_segment(x, m):
 
 
 def _launch_fwd(x, m):
-    """One launch forward on the card: (nB, n, K, K) -> (nB, ceil(n/2^m), K, K)."""
+    """One launch forward on the card, the fast kernel and its fix-up:
+    (nB, n, K, K) -> (nB, ceil(n/2^m), K, K)."""
     global FWD_LAUNCHES
     nB, n, K = _check_segment(x, m)
-    out = torch.empty((nB, (n + (1 << m) - 1) >> m, K, K), device=x.device,
-                      dtype=torch.float32)
+    nseg = (n + (1 << m) - 1) >> m
+    out = torch.empty((nB, nseg, K, K), device=x.device, dtype=torch.float32)
+    flags = torch.zeros(nB * nseg, device=x.device, dtype=torch.int32)
     lib = load("smallk_logmmexp", _SIGNATURES)
     with torch.cuda.device(x.device):
-        rc = lib.smallk_segment_fwd(ptr(x), ptr(out), nB, n, K, m,
+        rc = lib.smallk_segment_fwd(ptr(x), ptr(out), ptr(flags), nB, n, K, m,
                                     layout_for(K, m, False), stream(x))
-    check_status(rc, "smallk_segment_fwd")
+        check_status(rc, "smallk_segment_fwd")
+        rc = lib.smallk_fixup_fwd(ptr(x), ptr(out), ptr(flags), ptr(joint_counter(x.device)),
+                                  nB, n, K, m, stream(x))
+    check_status(rc, "smallk_fixup_fwd")
     FWD_LAUNCHES += 1
     return out
 
@@ -173,11 +205,15 @@ def _launch_bwd(x, g, m):
         raise ValueError(f"g must be a contiguous float32 {shape} tensor on "
                          f"{x.device}, got {tuple(g.shape)}")
     dx = torch.empty_like(x)
+    flags = torch.zeros(nB * shape[1], device=x.device, dtype=torch.int32)
     lib = load("smallk_logmmexp", _SIGNATURES)
     with torch.cuda.device(x.device):
-        rc = lib.smallk_segment_bwd(ptr(x), ptr(g), ptr(dx), nB, n, K, m,
+        rc = lib.smallk_segment_bwd(ptr(x), ptr(g), ptr(dx), ptr(flags), nB, n, K, m,
                                     layout_for(K, m, True), stream(x))
-    check_status(rc, "smallk_segment_bwd")
+        check_status(rc, "smallk_segment_bwd")
+        rc = lib.smallk_fixup_bwd(ptr(x), ptr(g), ptr(dx), ptr(flags), nB, n, K, m,
+                                  stream(x))
+    check_status(rc, "smallk_fixup_bwd")
     BWD_LAUNCHES += 1
     return dx
 
@@ -197,7 +233,8 @@ class _Segment(torch.autograd.Function):
 
 def reference_level(x):
     """Plain PyTorch version of one tree level (``ops.logmmexp.logmmexp`` on
-    the even and odd operators, the odd remainder carried over)."""
+    the even and odd operators, the joint-shift repair included, the odd
+    remainder carried over)."""
     n = x.shape[1]
     A, B = x[:, 0:n - n % 2:2], x[:, 1:n:2]
     a_max = torch.amax(A, dim=-1, keepdim=True).detach()
@@ -205,7 +242,7 @@ def reference_level(x):
     a_max = torch.where(torch.isfinite(a_max), a_max, torch.zeros_like(a_max))
     b_max = torch.where(torch.isfinite(b_max), b_max, torch.zeros_like(b_max))
     C = torch.matmul(torch.exp(A - a_max), torch.exp(B - b_max))
-    out = torch.log(C + _TINY) + a_max + b_max
+    out = joint_repair(torch.log(C + _TINY) + a_max + b_max, C, A, B)
     if n % 2:
         out = torch.cat([out, x[:, n - 1:]], dim=1)
     return out

@@ -150,8 +150,10 @@ def main():
 
     def bind(path):
         lib = ctypes.CDLL(path)
-        lib.smallk_segment_fwd.argtypes = [P, P, I, I, I, I, I, P]
-        lib.smallk_segment_bwd.argtypes = [P, P, P, I, I, I, I, I, P]
+        # the fast kernels alone: a null flags pointer skips the flag store
+        # of the joint-shift fix-up, which the probe does not launch
+        lib.smallk_segment_fwd.argtypes = [P, P, P, I, I, I, I, I, P]
+        lib.smallk_segment_bwd.argtypes = [P, P, P, P, I, I, I, I, I, P]
         lib.smallk_smem_bytes.argtypes = [I, I, I, I]
         lib.smallk_log_mismatches.argtypes = [ctypes.c_uint, ctypes.c_uint, P, P]
         return lib
@@ -175,7 +177,7 @@ def main():
         for m in plan:
             out = torch.empty((B, (cur.shape[1] + (1 << m) - 1) >> m, K, K), device="cuda")
             d = sk.layout_for(K, m, False) if direct is None else direct
-            ok(lib.smallk_segment_fwd(cur.data_ptr(), out.data_ptr(), B, cur.shape[1],
+            ok(lib.smallk_segment_fwd(cur.data_ptr(), out.data_ptr(), None, B, cur.shape[1],
                                       K, m, d, st()), "forward")
             xs.append(cur)
             cur = out
@@ -185,7 +187,7 @@ def main():
         for xin, m in reversed(list(zip(xs, plan))):
             dx = torch.empty_like(xin)
             d = sk.layout_for(K, m, True) if direct is None else direct
-            ok(lib.smallk_segment_bwd(xin.data_ptr(), g.data_ptr(), dx.data_ptr(), B,
+            ok(lib.smallk_segment_bwd(xin.data_ptr(), g.data_ptr(), dx.data_ptr(), None, B,
                                       xin.shape[1], K, m, d, st()), "backward")
             g = dx
         return g

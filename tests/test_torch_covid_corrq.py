@@ -29,7 +29,8 @@ from alan_tpu_torch.models import covid as tcovid
 from alan_tpu_torch.ops import smallk_kernel as tsk
 from alan_tpu_torch.sample import Sample
 from alan_tpu_torch.sampler import PermutationSampler
-from test_torch_harness import Env, assert_dt_close, assert_tree_close, to_numpy_tree
+from test_torch_harness import (Env, assert_dt_close, assert_tree_close, f64_chain_route,
+                                joint_count, joint_shift_off, to_numpy_tree)
 
 K, LR = 5, 0.3
 #: the low-rank factored path forced in each package, as at full size
@@ -68,7 +69,48 @@ def corrq():
     return jprob, tprob, jtree
 
 
+def _port_step(tprob, tree):
+    """(ELBO, moments, updated Q state, ELBO of the step, segment calls) of
+    one port QEM step from ``tree``."""
+    calls = []
+    orig = tsk.logmmexp_segment
+    with Env(**LOWRANK):
+        step, state = train.qem(tprob, K, lr=LR, device="cpu")
+        ts = Sample(tprob, tree, tprob.Q.plate.groupvarname2Kdim(K),
+                    PermutationSampler, False, states=state)
+        t_elbo, t_moms = ts._moments_and_elbo(list(tprob.Q.qem_flat_list_rmkeys))
+        try:
+            tsk.logmmexp_segment = (lambda x, m: calls.append((tuple(x.shape), m))
+                                    or orig(x, m))
+            (_, t_newQ), t_elbo2 = step(state, sample=tree)
+        finally:
+            tsk.logmmexp_segment = orig
+    return t_elbo, t_moms, t_newQ, t_elbo2, calls
+
+
+def _assert_step_close(ref, got):
+    """ELBO within 1e-5 relative; moments (the MVN's mean and mean_xxT among
+    them) and the updated QEM state (its 9 x 9 covariance among them)
+    within rtol/atol 1e-4."""
+    (r_elbo, r_moms, r_newQ), (elbo, moms, newQ) = ref, got
+    assert abs(float(elbo) - float(r_elbo)) <= 1e-5 * abs(float(r_elbo)), \
+        (float(elbo), float(r_elbo))
+    # 10 latents: the MVN's mean and mean_xxT, the Normals' mean and mean2
+    assert len(moms) == len(r_moms) == 20
+    assert [tuple(m.pos_shape) for m in moms[:2]] == [(9,), (9, 9)]
+    for rm, m in zip(r_moms, moms):
+        assert_dt_close(rm, m, 1e-4, 1e-4)
+    for g in ("qem_params", "qem_means"):
+        for k in r_newQ[g]:
+            assert_dt_close(r_newQ[g][k], newQ[g][k], 1e-4, 1e-4)
+
+
 def test_corrq_qem_step_matches_jax(corrq):
+    """At Q's initial state the separate shifts of alan_tpu's chain
+    log-matmul underflow on some entries, which the port takes with the
+    joint shift (counted here): the port's step is held against the port
+    with an exact float64 chain, and with the repair off against
+    alan_tpu's."""
     jprob, tprob, jtree = corrq
     gv2K = jprob.Q.plate.groupvarname2Kdim(K)
     rmQ = list(jprob.Q.qem_flat_list_rmkeys)
@@ -84,38 +126,26 @@ def test_corrq_qem_step_matches_jax(corrq):
         j_elbo, j_moms, j_newQ = jax.jit(jstep)()
 
     tree = convert.tree_from_numpy(to_numpy_tree(jtree), "cpu")
-    calls = []
-    orig = tsk.logmmexp_segment
-    with Env(**LOWRANK):
-        step, state = train.qem(tprob, K, lr=LR, device="cpu")
-        ts = Sample(tprob, tree, tprob.Q.plate.groupvarname2Kdim(K),
-                    PermutationSampler, False, states=state)
-        t_elbo, t_moms = ts._moments_and_elbo(list(tprob.Q.qem_flat_list_rmkeys))
-        try:
-            tsk.logmmexp_segment = (lambda x, m: calls.append((tuple(x.shape), m))
-                                    or orig(x, m))
-            (_, t_newQ), t_elbo2 = step(state, sample=tree)
-        finally:
-            tsk.logmmexp_segment = orig
-        dense_step, _ = train.qem(tprob, K, lr=LR, device="cpu")
-        with Env(ALAN_TPU_NO_SMALLK_CHAIN=1):
-            (_, d_newQ), d_elbo = dense_step(state, sample=tree)
+    with joint_count() as joints:
+        t_elbo, t_moms, t_newQ, t_elbo2, calls = _port_step(tprob, tree)
     # the chain ran through the small-K route: one launch of all four levels
     assert calls == [((4 * K, 16, K, K), 4)]
     assert float(t_elbo) == float(t_elbo2)
-    assert abs(float(t_elbo) - float(j_elbo)) <= 1e-5 * abs(float(j_elbo)), \
-        (float(t_elbo), float(j_elbo))
-    # 10 latents: the MVN's mean and mean_xxT, the Normals' mean and mean2
-    assert len(t_moms) == len(j_moms) == 20
-    assert [tuple(m.pos_shape) for m in t_moms[:2]] == [(9,), (9, 9)]
-    for jm, tm in zip(j_moms, t_moms):
-        assert_dt_close(jm, tm, 1e-4, 1e-4)
-    assert_tree_close(j_newQ["qem_params"], t_newQ["qem_params"], 1e-4, 1e-4)
-    assert_tree_close(j_newQ["qem_means"], t_newQ["qem_means"], 1e-4, 1e-4)
+    assert int(joints) > 0
+    with f64_chain_route():
+        f_elbo, f_moms, f_newQ, _, _ = _port_step(tprob, tree)
+    _assert_step_close((f_elbo, f_moms, f_newQ), (t_elbo, t_moms, t_newQ))
+    with joint_shift_off():
+        o_elbo, o_moms, o_newQ, _, _ = _port_step(tprob, tree)
+    _assert_step_close((j_elbo, j_moms, j_newQ), (o_elbo, o_moms, o_newQ))
     cov = t_newQ["qem_params"]["CM_alpha_covariance_matrix"].data
     assert cov.shape == (9, 9) and bool(torch.isfinite(cov).all())
     assert int(torch.linalg.cholesky_ex(cov)[1]) == 0
     # the dense chain route gives the same step
+    with Env(**LOWRANK):
+        dense_step, state = train.qem(tprob, K, lr=LR, device="cpu")
+        with Env(ALAN_TPU_NO_SMALLK_CHAIN=1):
+            (_, d_newQ), d_elbo = dense_step(state, sample=tree)
     assert abs(float(d_elbo) - float(t_elbo)) <= 1e-6 * abs(float(t_elbo))
     for g in ("qem_params", "qem_means"):
         for k, v in d_newQ[g].items():

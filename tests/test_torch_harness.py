@@ -10,7 +10,12 @@ Data travels between the packages as numpy.  Helpers:
 * ``port_np``: a port ``DT`` as numpy, laid out in a given dim order;
 * ``assert_dt_close``: a JAX ``DT`` and a port ``DT`` compared by dim name;
 * ``jax_movielens`` / ``port_movielens``: the MovieLens QEM problem,
-  grouped or not, in each package, built from the same numpy arrays.
+  grouped or not, in each package, built from the same numpy arrays;
+* ``f64_chain`` / ``f64_chain_route``: the timeseries chain as an exact
+  float64 log-space tree, the reference where the separate shifts of
+  ``alan_tpu``'s log-matmul underflow; ``joint_shift_off``: the port
+  without its joint-shift repair (``alan_tpu``'s arithmetic);
+  ``joint_count``: the entries that took the joint shift.
 
 The port runs on the CPU here (``device="cpu"``).
 """
@@ -75,11 +80,12 @@ def port_np(x, dims=None):
 
 
 def assert_dt_close(j, t, rtol, atol):
-    """A JAX DT and a port DT hold the same dims and values."""
+    """A reference DT (JAX's, or the port's own) and a port DT hold the
+    same dims and values."""
     assert set(j.dims) == set(t.dims), (j.dims, t.dims)
     assert t.pos_shape == tuple(j.pos_shape)
-    np.testing.assert_allclose(port_np(t, j.dims), np.asarray(j.data),
-                               rtol=rtol, atol=atol)
+    ref = port_np(j) if isinstance(j, TDT) else np.asarray(j.data)
+    np.testing.assert_allclose(port_np(t, j.dims), ref, rtol=rtol, atol=atol)
 
 
 def assert_tree_close(jtree, ttree, rtol, atol):
@@ -119,6 +125,60 @@ def port_movielens(arrays, grouped=True, device="cpu"):
     data = {"obs": convert.dt_from_numpy(arrays["obs"], plates, device)}
     build = tml.grouped_problem if grouped else tml.generate_problem
     return build({"plate_1": M, "plate_2": N}, data, cov, device=device)
+
+
+# ---- the chain's joint-shift repair ----------------------------------------------
+
+def f64_logmmexp(A, B):
+    """``logsumexp_k(A[..., i, k] + B[..., k, j])`` in float64, exactly (the
+    K^3 cross sum), cast back to A's type."""
+    A64, B64 = A.double(), B.double()
+    return torch.logsumexp(A64[..., :, :, None] + B64[..., None, :, :], dim=-2).to(A.dtype)
+
+
+def f64_chain(ms):
+    """``ms[..., T, K, K]`` reduced over T by the port's pairwise tree (the
+    odd remainder carried to the end of the next level), each product
+    :func:`f64_logmmexp`."""
+    x = ms
+    while x.shape[-3] != 1:
+        n = x.shape[-3]
+        prod = f64_logmmexp(x[..., 0:n - n % 2:2, :, :], x[..., 1:n:2, :, :])
+        if n % 2:
+            prod = torch.cat([prod, x[..., n - 1:, :, :]], dim=-3)
+        x = prod
+    return x[..., 0, :, :]
+
+
+@contextlib.contextmanager
+def f64_chain_route():
+    """The port's timeseries chain (``logpq.chain_logmmexp``) replaced by
+    :func:`f64_chain`."""
+    from alan_tpu_torch import logpq
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(logpq, "chain_logmmexp", f64_chain)
+        yield
+
+
+@contextlib.contextmanager
+def joint_shift_off():
+    """The port's log-matmuls without the joint-shift repair: no entry is
+    below a threshold of 0, so each is ``alan_tpu``'s."""
+    from alan_tpu_torch.ops import logmmexp_kernel as tlk
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tlk, "JOINT_BELOW", 0.0)
+        yield
+
+
+@contextlib.contextmanager
+def joint_count():
+    """A one-element tensor that counts the entries taking the joint shift
+    while the block runs."""
+    from alan_tpu_torch.ops import logmmexp_kernel as tlk
+    count = torch.zeros((), dtype=torch.int64)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tlk, "JOINT_COUNT", count)
+        yield count
 
 
 # ---- recording the draws -----------------------------------------------------

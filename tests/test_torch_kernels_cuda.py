@@ -29,6 +29,12 @@ and no JAX it runs without the suite's conftest:
   of the launch plan; one launch against ``reference_segment``; the
   kernels' shared memory against the planner's; their logarithm against
   ``logf``; and their refusal of K out of range;
+* the joint-shift repair on peaked operators (log-densities of a Normal of
+  scale 0.01 between particle sets of spread 1): the chain kernels with
+  their fix-ups at covid's chain width (K = 30, T = 16) and the fused
+  kernel with its fix-ups at K = 128 against the repaired plain versions
+  on the card (rtol/atol 1e-5 values, rtol/atol 1e-4 gradients) and a
+  float64 log-space evaluation; the same entries repaired on both sides;
 * the fused log-matmul kernel against ``reference_logmmexp``: both levels
   of the AR(1) chain at K = 1000 ((2, 1000, 1000) and batch 1), a ragged
   shape, -inf rows and sums of products in [e^-80, e^-78], rtol/atol 1e-5;
@@ -313,6 +319,85 @@ def test_smallk_chain_matches_plain_version(card, shape, inf):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(ggot, gwant, rtol=1e-4, atol=1e-5)
+
+
+def _peaked(rng, lead, K, steps, device):
+    """Log-transition operators (lead..., steps, K, K): log N(x[t + 1, j];
+    x[t, i], 0.01) between particle sets of spread 1 on a random walk."""
+    x = rng.normal(0, 1, (*lead, steps + 1, K))
+    x = x + np.cumsum(rng.normal(0, 0.3, (*lead, steps + 1, 1)), axis=-2)
+    d = (x[..., 1:, None, :] - x[..., :-1, :, None]) / 0.01
+    ms = (-0.5 * d * d - np.log(0.01 * np.sqrt(2 * np.pi))).astype(np.float32)
+    return torch.tensor(ms, device=device)
+
+
+def _f64_logmmexp(A, B):
+    return torch.logsumexp(A.double()[..., :, :, None] + B.double()[..., None, :, :], -2)
+
+
+def _joints(fn):
+    """fn()'s result and the entries that took the joint shift on the way."""
+    count = torch.zeros((), dtype=torch.int64, device="cuda")
+    old, tlk.JOINT_COUNT = tlk.JOINT_COUNT, count
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        tlk.JOINT_COUNT = old
+    return out, int(count)
+
+
+def test_peaked_chain_kernels_match_plain_and_f64(card):
+    ms = _peaked(np.random.default_rng(40), (8 * 30,), 30, 16, card)
+    lse = lambda y: torch.logsumexp(y.flatten(-2), -1).sum()
+
+    def run(chain):
+        x = ms.clone().requires_grad_(True)
+        y = chain(x)
+        (g,) = torch.autograd.grad(lse(y), [x])
+        return y.detach(), g
+    (got, ggot), n_kernel = _joints(lambda: run(tsk.chain_logmmexp_smallk))
+    (want, gwant), n_plain = _joints(lambda: run(_plain_chain))
+    x = ms.double()
+    while x.shape[1] != 1:
+        n = x.shape[1]
+        prod = _f64_logmmexp(x[:, 0:n - n % 2:2], x[:, 1:n:2])
+        x = torch.cat([prod, x[:, n - 1:]], 1) if n % 2 else prod
+    assert n_kernel == n_plain > 0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ggot, gwant, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.double(), x[:, 0], rtol=1e-5, atol=1e-5)
+
+
+def test_peaked_fused_kernel_matches_plain_and_f64(card):
+    AB = _peaked(np.random.default_rng(41), (6,), 128, 2, card)
+    A, B = AB[:, 0].contiguous(), AB[:, 1].contiguous()
+    W = torch.randn(6, 128, 128, device=card)
+
+    def run(f):
+        a, b = A.clone().requires_grad_(True), B.clone().requires_grad_(True)
+        y = f(a, b)
+        return (y.detach(), *torch.autograd.grad((y * W).sum(), [a, b]))
+    launches = (tlk.LAUNCHES, tlk.BWD_LAUNCHES)
+    got, n_kernel = _joints(lambda: run(tlk.logmmexp_fused))
+    assert (tlk.LAUNCHES - launches[0], tlk.BWD_LAUNCHES - launches[1]) == (1, 1)
+    want, n_plain = _joints(lambda: run(tlk.reference_logmmexp))
+    a64, b64 = A.double().requires_grad_(True), B.double().requires_grad_(True)
+    y64 = _f64_logmmexp(a64, b64)
+    exact = (y64.detach(), *torch.autograd.grad((y64 * W.double()).sum(), [a64, b64]))
+    assert n_kernel > 0 and abs(n_kernel - n_plain) <= n_plain // 1000
+    for g, w, e, tol in zip(got, want, exact, (1e-5, 1e-4, 1e-4)):
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+        torch.testing.assert_close(g.double(), e, rtol=tol, atol=tol)
+
+
+def test_smallk_fixup_shared_memory_matches_the_planner(card):
+    from alan_tpu_torch.ops.native import load
+    lib = load("smallk_logmmexp", tsk._SIGNATURES)
+    for K in (1, 2, 30, 45, 100, 128):
+        for m in (1, 2, 3, 4, 5):
+            for bwd in (False, True):
+                assert lib.smallk_fixup_smem_bytes(K, m, int(bwd)) == tsk.fixup_smem(K, m, bwd)
 
 
 @pytest.mark.parametrize("n,K,m", [(109, 30, 3), (14, 30, 3), (2, 30, 1), (11, 5, 2)])

@@ -9,7 +9,10 @@ the CPU (its kernels' plain versions).
   injected Q draws, with the low-rank factored path forced in both packages
   so covid's cross-K ``log_infected`` factor takes the ``LowRankDT`` route it
   takes at full size: ELBO within 1e-5 relative, moments and the updated Q
-  state within rtol/atol 1e-4;
+  state within rtol/atol 1e-4, against the port with an exact float64 chain
+  (at Q's initial state ``alan_tpu``'s chain underflows on some entries,
+  which the port takes with the joint shift), and with the port's
+  joint-shift repair off against ``alan_tpu``;
 * the AR(1) model's ELBO at K=200 from the same draws: 1e-5 relative.
 """
 import math
@@ -37,8 +40,8 @@ from alan_tpu_torch.ops import smallk_kernel as tsk
 from alan_tpu_torch.reduce_ks import factor_components
 from alan_tpu_torch.sample import Sample
 from alan_tpu_torch.sampler import PermutationSampler
-from test_torch_harness import (Env, assert_dt_close, assert_tree_close,
-                                jax_dt, to_numpy_tree)
+from test_torch_harness import (Env, assert_dt_close, f64_chain_route, jax_dt,
+                                joint_count, joint_shift_off, to_numpy_tree)
 
 #: the low-rank factored path forced in each package (covid's factor crosses
 #: the 2^28 work threshold only at full size)
@@ -224,20 +227,9 @@ def test_covid_fake_data_follows_the_recipe():
     assert np.all(a["log_infected"][:, -1] > a["log_infected"][:, 0])
 
 
-def test_covid_qem_step_matches_jax(covid_setup):
-    jprob, tprob, jtree = covid_setup
-    with Env(**JAX_LOWRANK):
-        stP, stQ = jprob.P.state(), jprob.Q.state()
-        s = JSample(jprob, jtree, jprob.Q.plate.groupvarname2Kdim(COVID_K), JPerm,
-                    False, states=(stP, stQ))
-        rmQ = jprob.Q.qem_flat_list_rmkeys
-        assert not jprob.P.qem_flat_list_rmkeys
-        j_elbo, j_moms = s._moments_and_elbo(list(rmQ), j_no_checkpoint)
-        j_newQ = jprob.Q._updated_qem_state(COVID_LR, s, j_no_checkpoint,
-                                            state=stQ, moments=j_moms)
-
-    tree = convert.tree_from_numpy(to_numpy_tree(jtree), "cpu")
-    fwd = tsk.FWD_LAUNCHES
+def _port_covid_qem_step(tprob, tree):
+    """(ELBO, moments, updated Q state, ELBO of the step, segment calls) of
+    one port QEM step from ``tree``."""
     calls = []
     orig = tsk.logmmexp_segment
     with Env(**PORT_LOWRANK):
@@ -251,6 +243,44 @@ def test_covid_qem_step_matches_jax(covid_setup):
             (_, t_newQ), t_elbo2 = step(state, sample=tree)
         finally:
             tsk.logmmexp_segment = orig
+    return t_elbo, t_moms, t_newQ, t_elbo2, calls
+
+
+def _assert_step_close(ref_elbo, ref_moms, ref_newQ, elbo, moms, newQ):
+    """ELBO within 1e-5 relative, moments and the updated state within
+    rtol/atol 1e-4; the reference's moments and state may be JAX's or the
+    port's DTs."""
+    assert abs(float(elbo) - float(ref_elbo)) <= 1e-5 * abs(float(ref_elbo)), \
+        (float(elbo), float(ref_elbo))
+    assert len(moms) == len(ref_moms) == 20    # 10 latents: mean, mean2
+    for rm, m in zip(ref_moms, moms):
+        assert_dt_close(rm, m, 1e-4, 1e-4)
+    for group in ("qem_params", "qem_means"):
+        for k in ref_newQ[group]:
+            assert_dt_close(ref_newQ[group][k], newQ[group][k], 1e-4, 1e-4)
+
+
+def test_covid_qem_step_matches_jax(covid_setup):
+    """One QEM step from alan_tpu's particles at Q's initial state.  There
+    the separate shifts of alan_tpu's chain log-matmul underflow on some
+    entries (every term below FLT_MIN); the port takes those entries with
+    the joint shift (counted here), so its step is held against the port
+    with an exact float64 chain, and with the repair off against alan_tpu."""
+    jprob, tprob, jtree = covid_setup
+    with Env(**JAX_LOWRANK):
+        stP, stQ = jprob.P.state(), jprob.Q.state()
+        s = JSample(jprob, jtree, jprob.Q.plate.groupvarname2Kdim(COVID_K), JPerm,
+                    False, states=(stP, stQ))
+        rmQ = jprob.Q.qem_flat_list_rmkeys
+        assert not jprob.P.qem_flat_list_rmkeys
+        j_elbo, j_moms = s._moments_and_elbo(list(rmQ), j_no_checkpoint)
+        j_newQ = jprob.Q._updated_qem_state(COVID_LR, s, j_no_checkpoint,
+                                            state=stQ, moments=j_moms)
+
+    tree = convert.tree_from_numpy(to_numpy_tree(jtree), "cpu")
+    fwd = tsk.FWD_LAUNCHES
+    with joint_count() as joints:
+        t_elbo, t_moms, t_newQ, t_elbo2, calls = _port_covid_qem_step(tprob, tree)
     # the chain ran through the small-K route, one launch per entry of the
     # launch plan: at T = 16 and K = 5 one launch of all four levels, over
     # nRs * K chains; on the CPU no kernel launches
@@ -258,13 +288,14 @@ def test_covid_qem_step_matches_jax(covid_setup):
     assert calls == [((4 * COVID_K, 16, COVID_K, COVID_K), 4)]
     assert tsk.FWD_LAUNCHES == fwd
     assert float(t_elbo) == float(t_elbo2)
-    assert abs(float(t_elbo) - float(j_elbo)) <= 1e-5 * abs(float(j_elbo)), \
-        (float(t_elbo), float(j_elbo))
-    assert len(t_moms) == len(j_moms) == 20    # 10 latents: mean, mean2
-    for jm, tm in zip(j_moms, t_moms):
-        assert_dt_close(jm, tm, 1e-4, 1e-4)
-    assert_tree_close(j_newQ["qem_params"], t_newQ["qem_params"], 1e-4, 1e-4)
-    assert_tree_close(j_newQ["qem_means"], t_newQ["qem_means"], 1e-4, 1e-4)
+    assert int(joints) > 0
+    with f64_chain_route():
+        f_elbo, f_moms, f_newQ, _, f_calls = _port_covid_qem_step(tprob, tree)
+    assert f_calls == []
+    _assert_step_close(f_elbo, f_moms, f_newQ, t_elbo, t_moms, t_newQ)
+    with joint_shift_off():
+        o_elbo, o_moms, o_newQ, _, _ = _port_covid_qem_step(tprob, tree)
+    _assert_step_close(j_elbo, j_moms, j_newQ, o_elbo, o_moms, o_newQ)
 
 
 def test_covid_chain_routes_agree(covid_setup):

@@ -14,7 +14,10 @@ params, from which the port rebuilds each draw under autograd
   (rtol/atol 1e-4, as ``tests/test_lowrank_lazy.py:57-67``), VI and RWS, on
   the conjugate model, small MovieLens ungrouped, small MovieLens grouped
   with the lazy low-rank route forced (its gradients reach both factored
-  operands, U and V) and small covid through the small-K chain route.
+  operands, U and V) and small covid through the small-K chain route (where
+  ``alan_tpu``'s chain underflows on some entries: the port against itself
+  with an exact float64 chain, and with its joint-shift repair off against
+  ``alan_tpu``).
 * Three VI and three RWS steps against ``alan_tpu``'s ``optax.adam`` steps:
   the opt state to rtol/atol 1e-4.
 * The port's counterparts of ``test_vi_converges_to_posterior`` and
@@ -40,7 +43,8 @@ from alan_tpu_torch.models import covid as tcovid
 from alan_tpu_torch.models import movielens as tml
 from alan_tpu_torch.ops import lowrank as tlr
 from alan_tpu_torch.ops import smallk_kernel as tsk
-from test_torch_harness import Env, assert_tree_close, jax_dt, to_numpy_tree
+from test_torch_harness import (Env, assert_tree_close, f64_chain_route, jax_dt, joint_count,
+                                joint_shift_off, to_numpy_tree)
 
 PRIOR_MEAN, PRIOR_SCALE, LIKE_SCALE, N = 2.0, 2.0, 3.0, 10
 
@@ -226,8 +230,21 @@ def _port_elbo_and_grads(tprob, K, reparam, draws):
                          for side, s in (("P", sP), ("Q", sQ))}
 
 
+def _assert_grads_close(ref_elbo, ref_grads, elbo, grads):
+    """The ELBO within 1e-5 relative, every gradient within rtol/atol
+    1e-4; the reference is alan_tpu's or the port's."""
+    assert abs(elbo - ref_elbo) <= 1e-5 * abs(ref_elbo), (elbo, ref_elbo)
+    for side in ("P", "Q"):
+        assert_tree_close(ref_grads[side], grads[side], 1e-4, 1e-4)
+
+
 @pytest.mark.parametrize("method", ["vi", "rws"])
 def test_elbo_and_gradients_match_jax(model, method):
+    """Covid at Q's initial state: ``alan_tpu``'s chain log-matmul
+    underflows on some entries, which the port takes with the joint shift
+    (counted); its ELBO and gradients are held against the port with an
+    exact float64 chain, and with the repair off against ``alan_tpu``'s.
+    On the other models no entry takes the joint shift."""
     name, jprob, tprob, K, env = model
     reparam = method == "vi"
     key = jax.random.key(7)
@@ -246,12 +263,21 @@ def test_elbo_and_gradients_match_jax(model, method):
         draws = jax_draws(jprob, K, reparam, key, jprob.Q.state())
         tlr.lowrank_logsumexp, tsk.logmmexp_segment = contract, chain_segment
         try:
-            t_elbo, t_grads = _port_elbo_and_grads(tprob, K, reparam, draws)
+            with joint_count() as joints:
+                t_elbo, t_grads = _port_elbo_and_grads(tprob, K, reparam, draws)
         finally:
             tlr.lowrank_logsumexp, tsk.logmmexp_segment = kernel, segment
-    assert abs(t_elbo - j_elbo) <= 1e-5 * abs(j_elbo), (t_elbo, j_elbo)
-    for side in ("P", "Q"):
-        assert_tree_close(j_grads[side], t_grads[side], 1e-4, 1e-4)
+    if name == "covid":
+        assert int(joints) > 0
+        with Env(**env), f64_chain_route():
+            f_elbo, f_grads = _port_elbo_and_grads(tprob, K, reparam, draws)
+        _assert_grads_close(f_elbo, f_grads, t_elbo, t_grads)
+        with Env(**env), joint_shift_off():
+            o_elbo, o_grads = _port_elbo_and_grads(tprob, K, reparam, draws)
+        _assert_grads_close(j_elbo, j_grads, o_elbo, o_grads)
+    else:
+        assert int(joints) == 0
+        _assert_grads_close(j_elbo, j_grads, t_elbo, t_grads)
     if name == "movielens_grouped_lazy":
         # z's factor ran through the lazy contraction, and under VI both of
         # its operands carry a gradient: z's draw in U, mu_z's and psi_z's in V
