@@ -28,16 +28,23 @@ The joint-shift repair (``logmmexp_kernel.joint_repair``).  An entry whose
 takes the joint shift, at every tree level, inner ones included: covid's
 peaked transitions otherwise underflow to ``log(tiny)`` with a gradient of
 0.  On the card each fast kernel raises a flag per segment job where an
-entry fell below the threshold, and a fix-up kernel, launched after it
-every time, recomputes only the flagged segments from the launch's input
-(forward) or takes their gradients from the joint weights ``exp(a_ik +
-b_kj - out_ij)`` (backward).  Unflagged segments are bitwise what the fast
-kernels give.
+entry fell below the threshold and stops work on that segment; a fix-up
+kernel, launched after it every time, reduces only the flagged segments,
+from the launch's input, in register tiles (forward), or takes their
+gradients from the joint weights ``exp(a_ik + b_kj - out_ij)``, rebuilt
+from what the forward fix-up kept (backward).
+Unflagged segments are bitwise what the fast kernels give.
 
-Each launch is one :class:`torch.autograd.Function` that saves only its own
-input.  The kernels take 1 <= K <= 128 (:data:`MAX_K`, the backward's
-shared memory at m = 1) and raise on anything else; the source note in
-``smallk_logmmexp.cu`` has the design.
+Each launch is one :class:`torch.autograd.Function` that saves its own
+input, its flags (an int a segment), which the backward's fast kernel
+takes to skip the flagged segments, and, where a gradient is wanted, what
+the forward fix-up computed for the backward's (:func:`fixup_saved`
+floats a segment: the inner nodes, each entry's t* and log-sum), so that
+the backward recomputes nothing.  The kernels take 1 <= K <= 128 (:data:`MAX_K`, the backward's
+shared memory at m = 1) and an m whose fix-up layouts fit (every m that
+:func:`launch_plan` picks), and raise on anything else; the source note in
+``smallk_logmmexp.cu`` has the design, :func:`fixup_layout` the fix-ups'
+shared memory.
 
 On CPU tensors the plain version, :func:`reference_segment`, runs the same
 launch plan under ordinary autograd: the same tree order, the same
@@ -76,10 +83,11 @@ _HEAD, _PAD = 4, 8   # floats before and after a kernel's layout (smallk_logmmex
 _SIGNATURES = {
     "smallk_segment_fwd": [PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
     "smallk_segment_bwd": [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
-    "smallk_fixup_fwd": [PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR],
-    "smallk_fixup_bwd": [PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR],
+    "smallk_fixup_fwd": [PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, PTR],
+    "smallk_fixup_bwd": [PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, PTR],
     "smallk_smem_bytes": [INT, INT, INT, INT],
-    "smallk_fixup_smem_bytes": [INT, INT, INT],
+    "smallk_fixup_smem_bytes": [INT, INT, INT, PTR],
+    "smallk_fixup_saved_floats": [INT, INT],
     "smallk_log_mismatches": [INT, INT, PTR, PTR],
 }
 
@@ -97,14 +105,48 @@ def segment_smem(K: int, m: int, backward: bool, direct: int) -> int:
     return 4 * (_HEAD + stage + slots * slot + S * K + _PAD)
 
 
+def _fixup_floats(K, m, backward, x0, rec):
+    S, slot = 1 << m, K * (K | 1)
+    stage = K * K * S + 8 if x0 else 0
+    if not backward:
+        inner = (S // 2 if m >= 2 else 0) + (S // 4 if m >= 3 else 0)
+        half = S // 2 * K * K                       # a level's -log2(sum) and t*
+        return _HEAD + stage + (inner + S) * slot + S * K + half + -(-half // 4) + _PAD
+    head = -(-(_HEAD + stage) // 4) * 4 + fixup_saved(K, m)
+    return head + (fixup_records(K, m) if rec else 0) + _PAD
+
+
+def fixup_records(K: int, m: int) -> int:
+    """Floats of the backward fix-up's records of one segment: (al, be,
+    -log2(sum), G) for each entry of its ``2^m - 1`` pairs."""
+    return ((1 << m) - 1) * 4 * K * K
+
+
+def fixup_saved(K: int, m: int) -> int:
+    """Floats the forward fix-up keeps for the backward of each segment
+    job (``smallk_logmmexp.cu``): the inner levels' nodes, then each
+    entry's -log2(sum) and its t* (a byte) in every pair."""
+    S, slot, KK = 1 << m, K * (K | 1), K * K
+    return -(-((S - 2) * slot + (S - 1) * KK + -(-((S - 1) * KK) // 4)) // 4) * 4
+
+
+def fixup_layout(K: int, m: int, backward: bool) -> tuple[int, int, int]:
+    """``(x0, rec, bytes)`` of the forward or backward fix-up's layout
+    (``smallk_logmmexp.cu``): the segment's operators (``x0``) and the
+    backward's records (``rec``) in shared memory where they fit, the
+    records given up first; bytes 0 where no layout fits."""
+    for x0, rec in ((1, 1), (1, 0), (0, 0)):
+        rec = rec if backward else 0
+        nbytes = 4 * _fixup_floats(K, m, backward, x0, rec)
+        if nbytes <= SMEM_PER_BLOCK:
+            return x0, rec, nbytes
+    return 0, 0, 0
+
+
 def fixup_smem(K: int, m: int, backward: bool) -> int:
     """Bytes of shared memory a block of the forward or backward fix-up
-    takes: the segment's inner nodes, in the backward two buffers of
-    gradients, and a pair's scratch (``smallk_logmmexp.cu``)."""
-    S, KK = 1 << m, K * K
-    scratch = max(3 * KK, 2 * KK + 2 * K) if backward else 2 * KK + 2 * K
-    grads = ((S // 2 if m >= 2 else 0) + (S // 4 if m >= 3 else 0)) * KK if backward else 0
-    return 4 * ((S - 2) * KK + grads + scratch)
+    takes at K and m (0 where none fits)."""
+    return fixup_layout(K, m, backward)[2]
 
 
 def layout_for(K: int, m: int, backward: bool) -> int:
@@ -171,13 +213,24 @@ def _check_segment(x, m):
                          f"nB={nB}, n={n}")
     if nB * ((n + (1 << m) - 1) >> m) > _INT_MAX:
         raise ValueError(f"nB={nB}, n={n}, m={m}: more segments than a launch takes")
+    if not (fixup_smem(K, m, False) and fixup_smem(K, m, True)):
+        raise ValueError(f"K={K}, m={m}: the joint-shift fix-ups do not fit in shared "
+                         f"memory (launch_plan picks an m that does)")
     return nB, n, K
 
 
-def _launch_fwd(x, m):
-    """One launch forward on the card, the fast kernel and its fix-up:
-    (nB, n, K, K) -> (nB, ceil(n/2^m), K, K)."""
-    global FWD_LAUNCHES
+def _sm_count(device):
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device]
+
+
+_SMS: dict = {}
+
+
+def fast_fwd(x, m):
+    """The forward kernel alone: its output, where the flagged segments
+    are left to the fix-up, and the flags."""
     nB, n, K = _check_segment(x, m)
     nseg = (n + (1 << m) - 1) >> m
     out = torch.empty((nB, nseg, K, K), device=x.device, dtype=torch.float32)
@@ -186,18 +239,41 @@ def _launch_fwd(x, m):
     with torch.cuda.device(x.device):
         rc = lib.smallk_segment_fwd(ptr(x), ptr(out), ptr(flags), nB, n, K, m,
                                     layout_for(K, m, False), stream(x))
-        check_status(rc, "smallk_segment_fwd")
+    check_status(rc, "smallk_segment_fwd")
+    return out, flags
+
+
+def fixup_fwd(x, out, flags, m, save=False):
+    """The forward fix-up alone, over :func:`fast_fwd`'s output and flags;
+    with ``save``, returns what the backward fix-up takes (else None)."""
+    nB, n, K, _ = x.shape
+    jobs = nB * ((n + (1 << m) - 1) >> m)
+    saved = (torch.empty(jobs * fixup_saved(K, m), device=x.device, dtype=torch.float32)
+             if save else None)
+    lib = load("smallk_logmmexp", _SIGNATURES)
+    with torch.cuda.device(x.device):
         rc = lib.smallk_fixup_fwd(ptr(x), ptr(out), ptr(flags), ptr(joint_counter(x.device)),
-                                  nB, n, K, m, stream(x))
+                                  ptr(saved), nB, n, K, m, stream(x))
     check_status(rc, "smallk_fixup_fwd")
+    return saved
+
+
+def _launch_fwd(x, m, save=False):
+    """One launch forward on the card, the fast kernel and its fix-up:
+    (nB, n, K, K) -> (nB, ceil(n/2^m), K, K), its flags and, with ``save``,
+    what its backward takes."""
+    global FWD_LAUNCHES
+    out, flags = fast_fwd(x, m)
+    saved = fixup_fwd(x, out, flags, m, save)
     FWD_LAUNCHES += 1
-    return out
+    return out, flags, saved
 
 
-def _launch_bwd(x, g, m):
-    """One launch backward on the card: the gradient of the launch's input
-    from ``g``, the gradient of its output."""
-    global BWD_LAUNCHES
+def fast_bwd(x, g, m, flags=None):
+    """The backward kernel alone: dx, where the flagged segments are left
+    to the fix-up, and the flags.  ``flags``: the forward launch's over the
+    same x (:func:`fast_fwd`), whose segments the kernel then skips
+    unread; else it finds them itself."""
     nB, n, K = _check_segment(x, m)
     shape = (nB, (n + (1 << m) - 1) >> m, K, K)
     if (g.device != x.device or g.dtype != torch.float32 or not g.is_contiguous()
@@ -205,15 +281,44 @@ def _launch_bwd(x, g, m):
         raise ValueError(f"g must be a contiguous float32 {shape} tensor on "
                          f"{x.device}, got {tuple(g.shape)}")
     dx = torch.empty_like(x)
-    flags = torch.zeros(nB * shape[1], device=x.device, dtype=torch.int32)
+    if flags is None:
+        flags = torch.zeros(nB * shape[1], device=x.device, dtype=torch.int32)
     lib = load("smallk_logmmexp", _SIGNATURES)
     with torch.cuda.device(x.device):
         rc = lib.smallk_segment_bwd(ptr(x), ptr(g), ptr(dx), ptr(flags), nB, n, K, m,
                                     layout_for(K, m, True), stream(x))
-        check_status(rc, "smallk_segment_bwd")
-        rc = lib.smallk_fixup_bwd(ptr(x), ptr(g), ptr(dx), ptr(flags), nB, n, K, m,
-                                  stream(x))
+    check_status(rc, "smallk_segment_bwd")
+    return dx, flags
+
+
+def fixup_bwd(x, g, dx, flags, saved, m):
+    """The backward fix-up alone, over :func:`fast_bwd`'s dx and flags and
+    the forward fix-up's ``saved`` state over the same x.  Where its
+    records do not fit in shared memory it takes a scratch of device memory
+    for one block an SM."""
+    nB, n, K, _ = x.shape
+    if saved is None:
+        raise ValueError("the backward fix-up takes the forward fix-up's saved state")
+    _, rec, _ = fixup_layout(K, m, True)
+    blocks = 0 if rec else _sm_count(x.device)
+    scratch = (None if rec else
+               torch.empty(blocks * fixup_records(K, m), device=x.device, dtype=torch.float32))
+    lib = load("smallk_logmmexp", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        rc = lib.smallk_fixup_bwd(ptr(x), ptr(g), ptr(dx), ptr(flags), ptr(saved), ptr(scratch),
+                                  blocks, nB, n, K, m, stream(x))
     check_status(rc, "smallk_fixup_bwd")
+    return dx
+
+
+def _launch_bwd(x, g, m, flags=None, saved=None):
+    """One launch backward on the card: the gradient of the launch's input
+    from ``g``, the gradient of its output, given the forward launch's
+    flags (whose segments the fast kernel skips; the same x flags no
+    others) and saved state (:func:`fixup_bwd` raises without it)."""
+    global BWD_LAUNCHES
+    dx, flags = fast_bwd(x, g, m, flags)
+    fixup_bwd(x, g, dx, flags, saved, m)
     BWD_LAUNCHES += 1
     return dx
 
@@ -222,13 +327,14 @@ class _Segment(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, m):
         ctx.m = m
-        ctx.save_for_backward(x)
-        return _launch_fwd(x, m)
+        out, flags, saved = _launch_fwd(x, m, save=ctx.needs_input_grad[0])
+        ctx.save_for_backward(x, flags, saved)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return _launch_bwd(x, g.contiguous(), ctx.m), None
+        x, flags, saved = ctx.saved_tensors
+        return _launch_bwd(x, g.contiguous(), ctx.m, flags, saved), None
 
 
 def reference_level(x):

@@ -317,6 +317,9 @@ IS_DRAWS_N = (100, 1000, 3000)
 N_COVID_DRAWS, COVID_NEAR_TRUTH_SCALE = 100, 0.003
 
 FAILURES = []
+#: the fix-ups' times and bounds on the main paths' own operators, for the
+#: kernels line
+FIXUP_REPORTS = {}
 
 
 def emit(obj):
@@ -677,6 +680,7 @@ def _levels(T):
 def phase_chain_kernels():
     """The small-K chain kernels against their plain version on whole
     chains, and their times over covid's chain."""
+    import ctypes
     import torch
     from alan_tpu_torch.ops import logmmexp as lm
     from alan_tpu_torch.ops import native
@@ -693,10 +697,18 @@ def phase_chain_kernels():
         fail("kernels", f"the kernels' logarithm differs from logf at {log_bad} floats")
     _check_chain("K2", (130, 8, 2), seed=21)
     _check_chain("K100_odd_T", (16, 5, 100), seed=22)
-    fix_sizes = {f"K{K}_m{m}_{d}": [lib.smallk_fixup_smem_bytes(K, m, int(d == "bwd")),
-                                    sk.fixup_smem(K, m, d == "bwd")]
+    records = ctypes.c_int(-1)
+
+    def fix_layout(K, m, bwd):
+        """The kernel's and the planner's (shared bytes, device floats of
+        the backward's records)."""
+        nbytes = lib.smallk_fixup_smem_bytes(K, m, int(bwd), ctypes.byref(records))
+        _, rec, want = sk.fixup_layout(K, m, bwd)
+        return [[nbytes, records.value],
+                [want, sk.fixup_records(K, m) if bwd and want and not rec else 0]]
+    fix_sizes = {f"K{K}_m{m}_{'bwd' if bwd else 'fwd'}": fix_layout(K, m, bwd)
                  for K in (1, 2, 30, 45, 100, 128) for m in (1, 2, 3, 4, 5)
-                 for d in ("fwd", "bwd")}
+                 for bwd in (False, True)}
     if any(a != b for a, b in fix_sizes.values()):
         fail("kernels", f"fix-up shared memory: the kernel and the planner disagree {fix_sizes}")
     _check_chain("inf", (40, 7, 30), seed=23, inf=True)
@@ -707,9 +719,10 @@ def phase_chain_kernels():
     peaked = _check_peaked_chain("covid_peaked", COVID_CHAIN, seed=26)
 
     B, T, K = COVID_CHAIN
-    fwd_ms, bwd_ms = _chain_times(ms)
+    _chain_times(ms)
     smi = [nvidia_smi_clocks()]
-    fwd_ms, bwd_ms = _chain_times(ms)    # timed again, beside the sample
+    times = _chain_times(ms)    # timed again, beside the sample
+    fwd_ms, bwd_ms = times["fwd_ms"], times["bwd_ms"]
 
     def plain_fwd():
         with torch.no_grad():
@@ -746,46 +759,98 @@ def phase_chain_kernels():
           "dense_route_fwd_ms": dense_fwd_ms,
           "fwd_bound_ms": fwd_bound, "bwd_bound_ms": bwd_bound,
           "fwd_bound_share": fwd_bound / fwd_ms, "bwd_bound_share": bwd_bound / bwd_ms,
-          "peaked_fwd_ms": peaked["fwd_ms"], "peaked_bwd_ms": peaked["bwd_ms"],
+          "apart": times, "peaked": {k: v for k, v in peaked.items() if k.endswith("_ms")
+                                     or k.startswith(("joint", "flagged", "fixup"))},
           "log_mismatches_in_FLT_MIN_to_128": log_bad,
           "clocks_power": smi})
+
+    def apart(d, way):
+        return {"fast_ms": d[f"fast_{way}_ms"], "fixup_ms": d[f"fixup_{way}_ms"],
+                "fixup_bound_ms": d[f"fixup_{way}_bound_ms"],
+                "fixup_bound_share": d[f"fixup_{way}_bound_share"]}
     return {
         "fwd": dict(max_abs_err=main["out"]["max_abs_err"], ms=fwd_ms,
                     plain_ms=plain_fwd_ms, bound_ms=fwd_bound, bound_by=fwd_by,
-                    dense_route_ms=dense_fwd_ms, peaked_ms=peaked["fwd_ms"],
+                    dense_route_ms=dense_fwd_ms, **apart(times, "fwd"),
+                    peaked_ms=peaked["fwd_ms"], peaked=apart(peaked, "fwd"),
+                    peaked_joint_entries=peaked["joint_entries"],
                     peaked_max_abs_err=peaked["out"]["max_abs_err"]),
         "bwd": dict(max_abs_err=main["dms"]["max_abs_err"], ms=bwd_ms,
                     plain_ms=plain_bwd_ms, bound_ms=bwd_bound, bound_by=bwd_by,
-                    dense_route_ms=None, peaked_ms=peaked["bwd_ms"],
+                    dense_route_ms=None, **apart(times, "bwd"),
+                    peaked_ms=peaked["bwd_ms"], peaked=apart(peaked, "bwd"),
+                    peaked_flagged_pairs=peaked["flagged_pairs_bwd"],
                     peaked_max_abs_err=peaked["dms"]["max_abs_err"]),
     }
 
 
+def _flagged_pairs(flags, n, m):
+    """Pair products in the segment jobs that ``flags`` (a launch's, over
+    (nB, n, K, K) at m) marks: a segment of len operators holds len - 1."""
+    import torch
+    S = 1 << m
+    nseg = (n + S - 1) >> m
+    seg = torch.arange(flags.numel(), device=flags.device) % nseg
+    lens = torch.clamp(n - seg * S, max=S)
+    return int(((lens - 1) * (flags != 0)).sum())
+
+
 def _chain_times(ms, seed=0):
-    """CUDA-event ms of the chain's forward launches over ``ms`` (nB, T, K,
-    K), each with its fix-up, and of its backward launches from seeded
-    random gradients."""
+    """CUDA-event ms over ``ms`` (nB, T, K, K) of the chain's launches,
+    forward (each with its fix-up, keeping the state the backward takes)
+    and backward from seeded random gradients, and of the fast launches and
+    the fix-ups apart (the forward's also without that state).  Each
+    fix-up's bound counts the exponentials this data needs: K a joint
+    entry forward, 2 K^3 a pair of a flagged segment backward (the sum that
+    gives log(sum), then the weights), at PEAK_EXP_PER_S."""
     import torch
     from alan_tpu_torch.ops import smallk_kernel as sk
     B, T, K, _ = ms.shape
     plan = sk.launch_plan(T, K)
-    xs, x = [], ms
+    xs, outs, fflags, saves, x, joints = [], [], [], [], ms, 0
     for m in plan:
+        out, flags = sk.fast_fwd(x, m)
+        saved, n = _joint_counted(lambda: sk.fixup_fwd(x, out, flags, m, save=True))
+        joints += n
         xs.append(x)
-        x = sk._launch_fwd(x, m)
+        outs.append(out)
+        fflags.append(flags)
+        saves.append(saved)
+        x = out
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    gs = [torch.randn((B, (x.shape[1] + (1 << m) - 1) >> m, K, K), device="cuda",
-                      generator=gen) for x, m in zip(xs, plan)]
+    gs = [torch.randn(o.shape, device="cuda", generator=gen) for o in outs]
+    # the backward takes the forward's flags and saved state, as the
+    # autograd launch does; the forward keeps that state, as on a path
+    # that wants gradients
+    dxs = [sk.fixup_bwd(x, g, sk.fast_bwd(x, g, m, f)[0], f, sv, m)
+           for x, g, f, sv, m in zip(xs, gs, fflags, saves, plan)]
+    pairs = sum(_flagged_pairs(f, x.shape[1], m) for f, x, m in zip(fflags, xs, plan))
 
     def fwd():
         x = ms
         for m in plan:
-            x = sk._launch_fwd(x, m)
+            x = sk._launch_fwd(x, m, save=True)[0]
 
     def bwd():
-        for x, g, m in zip(xs, gs, plan):
-            sk._launch_bwd(x, g, m)
-    return cuda_ms(fwd), cuda_ms(bwd)
+        for x, g, f, sv, m in zip(xs, gs, fflags, saves, plan):
+            sk._launch_bwd(x, g, m, f, sv)
+    res = {"fwd_ms": cuda_ms(fwd), "bwd_ms": cuda_ms(bwd),
+           "fast_fwd_ms": cuda_ms(lambda: [sk.fast_fwd(x, m) for x, m in zip(xs, plan)]),
+           "fixup_fwd_ms": cuda_ms(lambda: [sk.fixup_fwd(x, o, f, m, save=True)
+                                            for x, o, f, m in zip(xs, outs, fflags, plan)]),
+           "fixup_fwd_nograd_ms": cuda_ms(lambda: [sk.fixup_fwd(x, o, f, m) for x, o, f, m
+                                                   in zip(xs, outs, fflags, plan)]),
+           "fast_bwd_ms": cuda_ms(lambda: [sk.fast_bwd(x, g, m, f)
+                                           for x, g, f, m in zip(xs, gs, fflags, plan)]),
+           "fixup_bwd_ms": cuda_ms(lambda: [sk.fixup_bwd(x, g, d, f, sv, m) for x, g, d, f, sv, m
+                                            in zip(xs, gs, dxs, fflags, saves, plan)]),
+           "saved_gb": sum(4 * sv.numel() for sv in saves) / 1e9,
+           "joint_entries": joints, "flagged_pairs_bwd": pairs,
+           "fixup_fwd_bound_ms": joints * K / PEAK_EXP_PER_S * 1e3,
+           "fixup_bwd_bound_ms": pairs * 2.0 * K ** 3 / PEAK_EXP_PER_S * 1e3}
+    res["fixup_fwd_bound_share"] = res["fixup_fwd_bound_ms"] / res["fixup_fwd_ms"]
+    res["fixup_bwd_bound_share"] = res["fixup_bwd_bound_ms"] / res["fixup_bwd_ms"]
+    return res
 
 
 def _peaked_chain(shape, seed):
@@ -884,7 +949,7 @@ def _check_peaked_chain(tag, shape, seed, n_f64=60):
     if launches != [len(plan)] * 2 or not torch.isfinite(got).all():
         res["ok"] = False
         fail("kernels", f"{tag}: {launches} launches or a non-finite chain")
-    res["fwd_ms"], res["bwd_ms"] = _chain_times(ms)
+    res.update(_chain_times(ms))
     emit(res)
     return res
 
@@ -1468,7 +1533,8 @@ def _rws_draws(problem, state, K):
 def _chain_report(step, state, seed):
     """One QEM step at ``state``: the entries of its chain's forward that
     took the joint shift, of all its pair products' entries, and the chain
-    kernels' times (forward launches with their fix-ups, backward ones) on
+    kernels' times (forward launches with their fix-ups, backward ones, and
+    the fast launches and the fix-ups apart, with the fix-ups' bounds) on
     the operator that step hands them."""
     import torch
     from alan_tpu_torch.ops import logmmexp as lm
@@ -1486,10 +1552,11 @@ def _chain_report(step, state, seed):
     ms = captured[0]
     B, T, K, _ = ms.shape
     entries = sum(_levels(T)) * B * K * K
-    fwd_ms, bwd_ms = _chain_times(ms)
+    times = _chain_times(ms)
     del captured, ms
     return {"joint_entries": joints, "entries": entries, "joint_share": joints / entries,
-            "chain_fwd_ms": fwd_ms, "chain_bwd_ms": bwd_ms}
+            "chain_fwd_ms": times.pop("fwd_ms"), "chain_bwd_ms": times.pop("bwd_ms"),
+            **times}
 
 
 def phase_covid_main_path():
@@ -1507,6 +1574,7 @@ def phase_covid_main_path():
         {"model": "covid", "nRs": ps["nRs"], "nDs_train": ps["nDs"],
          "chains": ps["nRs"] * K_COVID})
     trained = _chain_report(step, state, seed=4)
+    FIXUP_REPORTS["covid_own"] = trained
     emit({"phase": phase, "joint_shift": True, "at_q_init": at_init,
           "after_6_qem_steps": trained,
           "chain_fwd_ms_before_fixups": CHAIN_MS_BEFORE_FIXUPS[0],
@@ -1568,7 +1636,42 @@ def phase_ar1_large_k():
     def elbo(state, gen):
         return state, float(problem.sample(K_AR1, gen, reparam=False).elbo_nograd())
     _profile_step("ar1_large_k", elbo, None, gen, ms)
+    FIXUP_REPORTS["ar1_own"] = _fused_fixup_report(
+        lambda: problem.sample(K_AR1, gen, reparam=False).elbo_nograd())
+    emit({"phase": "ar1_large_k", "fused_fixup_on_own_operators": FIXUP_REPORTS["ar1_own"]})
     return launches
+
+
+def _fused_fixup_report(run):
+    """The fused route's launches of one ``run()`` on its own operators:
+    each launch's device ms (CUDA graphs of 20), the pre-pass and product
+    alone, the fix-up as the difference, its joint entries and its bound
+    (K exponentials a joint entry at PEAK_EXP_PER_S)."""
+    from alan_tpu_torch.ops import logmmexp_kernel as lk
+    captured, orig = [], lk._launch
+
+    def spy(A, B):
+        captured.append((A.clone(), B.clone()))
+        return orig(A, B)
+    lk._launch = spy
+    try:
+        run()
+    finally:
+        lk._launch = orig
+    out = []
+    for A, B in captured:
+        nb, M, K = A.shape
+        N = B.shape[2]
+        bn = lk.tile_n(nb, M, N, lk._sms(A.device))
+        ms = graph_ms(lambda: lk._launch(A, B))
+        before_ms = graph_ms(lambda: lk._product(*lk._prepass(A, B, bn), nb, M, K, N, bn))
+        joints = _joint_counted(lambda: lk._launch(A, B))[1]
+        bound_ms = joints * K / PEAK_EXP_PER_S * 1e3
+        out.append({"nb_M_K_N": [nb, M, K, N], "ms": ms, "prepass_product_ms": before_ms,
+                    "fixup_ms": ms - before_ms, "joint_entries": joints,
+                    "fixup_bound_ms": bound_ms,
+                    "fixup_bound_share": bound_ms / max(ms - before_ms, 1e-9)})
+    return out
 
 
 def _profile_step(phase, step, state, gen, ms_per_step):
@@ -3353,6 +3456,9 @@ def main():
              posterior_launches={k: v["smallk_fwd"] for k, v in covid_post_launches.items()},
              graph_launches=graphed("smallk_fwd"),
              canonical_launches={k: v.get("smallk_fwd") for k, v in canonical_chain.items()},
+             covid_own={k: FIXUP_REPORTS["covid_own"][k] for k in (
+                 "chain_fwd_ms", "fast_fwd_ms", "fixup_fwd_ms", "fixup_fwd_bound_ms",
+                 "joint_entries")},
              library_ms=None, **smallk["fwd"]),
         dict(name="smallk_logmmexp_bwd", route="cuda", source=smallk_src,
              replaces="alan_tpu/ops/pallas_smallk.py:80",
@@ -3361,6 +3467,9 @@ def main():
              posterior_launches={k: v["smallk_bwd"] for k, v in covid_post_launches.items()},
              graph_launches=graphed("smallk_bwd"),
              canonical_launches={k: v.get("smallk_bwd") for k, v in canonical_chain.items()},
+             covid_own={k: FIXUP_REPORTS["covid_own"][k] for k in (
+                 "chain_bwd_ms", "fast_bwd_ms", "fixup_bwd_ms", "fixup_bwd_bound_ms",
+                 "flagged_pairs_bwd")},
              library_ms=None, **smallk["bwd"]),
         dict(name="logmmexp_fused", route="cuda",
              source="alan_tpu_torch/csrc/logmmexp.cu",
@@ -3368,6 +3477,7 @@ def main():
              launches=ar1_launches["logmmexp"],
              posterior_launches={"importance_sample": ar1_post_launches["logmmexp"]},
              graph_launches=graphed("logmmexp"),
+             ar1_own_fixups=FIXUP_REPORTS["ar1_own"],
              library_ms=None, **fused),
     ]})
     print(card, flush=True)

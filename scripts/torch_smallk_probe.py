@@ -7,28 +7,41 @@ Builds ``alan_tpu_torch/csrc/smallk_logmmexp.cu`` with ``-Xptxas -v`` and
 prints what ptxas reports for each kernel (registers, spills), and counts
 the floats in [FLT_MIN, 128] (every value c + FLT_MIN takes) where the
 kernels' logarithm differs from logf.  Then, at covid's chain (2760 chains,
-T = 109, K = 30): the chain forward and backward against the plain
-level-by-level version (max abs error, bitwise or not) and their times
-(CUDA events, median of 7 x 3 runs) over the launch plan, each launch's
-time, and the same for the direct layout and for plans of shallower
-segments (every launch at m <= 1, 2).  Options:
+T = 109, K = 30): the fast kernels alone (no flags, so no fix-up) against
+the plain level-by-level version (max abs error, bitwise or not) and their
+times (CUDA events, median of 7 x 3 runs) over the launch plan, each
+launch's time, and the same for the direct layout and for plans of
+shallower segments (every launch at m <= 1, 2); and on peaked operators
+(covid's transitions, where most entries take the joint shift) the fast
+launches and the joint-shift fix-ups timed apart, forward and backward.
+Options:
 
-  --parent DIR  also time, in the same process, the one-level-a-launch
-                kernel of an earlier checkout (its 7 level launches);
-  --diag        also time a build with expf and the logarithm replaced by
-                the identity (wrong results: the time the transcendentals
-                take);
-  --phases      also time the phases of each job of the first launch: a
+  --parent DIR  also time, in the same process, an earlier checkout's
+                chain (its fast kernels and fix-ups, from before the
+                fix-ups kept state for the backward) on the peaked and on
+                random operators, in turns with this tree's (parent, this,
+                this, parent);
+  --diag        also time a build with expf, ex2 and the logarithm
+                replaced by the identity (wrong results: the time the
+                transcendentals take), the fix-ups on peaked operators too;
+  --phases      also time the phases of each job of the first launch, on
+                random and on peaked operators, fast kernels and fix-ups: a
                 build whose blocks add the clock64() cycles between their
                 barriers to a device counter, averaged over the jobs, and
                 each block's lifetime against the launch's event time;
-  --sass FILE   write cuobjdump -sass of the kernels to FILE.
+  --sass FILE   write cuobjdump -sass of the kernels to FILE;
+  --variant L|OLD|NEW
+                also time, in the same process, the peaked fix-ups of a
+                build of the source with the text OLD replaced by NEW
+                (each must occur), labelled L; repeatable, built in
+                parallel.  NEW may use \\n for a newline.
 
 Clocks and power (nvidia-smi) are sampled before and after.  One JSON line
 per result.
 """
 import argparse
 import ctypes
+import re
 import json
 import os
 import statistics
@@ -79,44 +92,193 @@ def build(name, src, extra):
     return path, b.log
 
 
+#: kernels the --phases build clocks: (kind, where the kernel starts, where
+#: its body ends, the text after which a job starts)
+PHASE_KERNELS = ((0, "segment_fwd_kernel(", "// dx of each segment", "++it) {"),
+                 (1, "segment_bwd_kernel(", "// ---- the joint-shift fix-up", "++it) {"),
+                 (2, "segment_fixup_fwd_kernel(", "// dx of each flagged segment",
+                  "if (!flags[job]) continue;"),
+                 (3, "segment_fixup_bwd_kernel(", "// ---- end of the fix-up",
+                  "if (!flags[job]) continue;"))
+
+
 def phase_source(text):
     """The kernel source with phase clocks: in each job of a block, thread 0
-    adds the clock64() cycles between its barriers to
-    phase_cycles[kind][phase] (kind 0 forward, 1 backward; [kind][31]
-    counts the jobs), read and reset through two extra C entry points."""
+    adds the clock64() cycles between its barriers (and, in the fix-ups,
+    the end of a segment's load) to phase_cycles[kind][phase] (kind as
+    PHASE_KERNELS; [kind][31] counts the jobs, [kind][29] the blocks'
+    lifetimes), read and reset through two extra C entry points."""
     import re
     hook = """
-__device__ unsigned long long phase_cycles[2][32];
+__device__ unsigned long long phase_cycles[4][32];
 #define MARK(k) if (threadIdx.x == 0) { long long now_ = clock64(); \\
-  atomicAdd(&phase_cycles[k][ph_ < 31 ? ph_ : 30], (unsigned long long)(now_ - t0_)); \\
+  atomicAdd(&phase_cycles[k][ph_ < 28 ? ph_ : 28], (unsigned long long)(now_ - t0_)); \\
   ++ph_; t0_ = now_; }
 """
     text = text.replace("namespace {\n", "namespace {\n" + hook, 1)
-    for kind, name, nxt in ((0, "segment_fwd_kernel(", "// dx of each segment"),
-                            (1, "segment_bwd_kernel(", "// Counts the floats x")):
+    for kind, name, nxt, job in PHASE_KERNELS:
         a = text.index(name)
         b = text.index(nxt, a)
         body = text[a:b]
         body = body.replace("extern __shared__ float sh[];",
-                            "extern __shared__ float sh[];\n  long long t0_ = clock64(); int ph_ = 0;")
-        body = body.replace("++it) {", "++it) {\n    ph_ = 0;\n    if (threadIdx.x == 0) "
-                            f"atomicAdd(&phase_cycles[{kind}][31], 1ull);", 1)
-        body = body.replace("long long t0_ = clock64();", "long long t0_ = clock64(), start_ = t0_;", 1)
+                            "extern __shared__ float sh[];\n  long long t0_ = clock64(), "
+                            "start_ = t0_; int ph_ = 0;")
+        body = body.replace(job, job + "\n    ph_ = 0;\n    t0_ = clock64();\n"
+                            f"    if (threadIdx.x == 0) atomicAdd(&phase_cycles[{kind}][31], 1ull);",
+                            1)
         end = body.rindex("\n}\n")
         body = (body[:end] + f"\n  if (threadIdx.x == 0) atomicAdd(&phase_cycles[{kind}][29], "
                 "(unsigned long long)(clock64() - start_));" + body[end:])
         body = re.sub(r"__syncthreads\(\);", f"__syncthreads(); MARK({kind});", body)
+        body = body.replace("wait_stage(bar, loads++);", f"wait_stage(bar, loads++); MARK({kind});")
         text = text[:a] + body + text[b:]
     text += """
 extern "C" int smallk_phase_read(unsigned long long* out) {
   return (int)cudaMemcpyFromSymbol(out, phase_cycles, sizeof(phase_cycles));
 }
 extern "C" int smallk_phase_reset() {
-  static unsigned long long zero[2][32];
+  static unsigned long long zero[4][32];
   return (int)cudaMemcpyToSymbol(phase_cycles, zero, sizeof(zero));
 }
 """
     return text
+
+
+def peaked_chain(shape, seed):
+    """Covid's chain with peaked transitions (as chip_smoke.py's
+    _peaked_chain): log N(x[t + 1, j]; x[t, i], 0.01) between particle
+    sets of spread 1 around a random walk."""
+    import math
+    import numpy as np
+    import torch
+    B, T, K = shape
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (B, T + 1, K)) + np.cumsum(rng.normal(0, 0.3, (B, T + 1, 1)), axis=1)
+    x = torch.from_numpy(x.astype(np.float32)).cuda()
+    d = (x[:, 1:, None, :] - x[:, :-1, :, None]) / 0.01
+    return -0.5 * d * d - math.log(0.01 * math.sqrt(2 * math.pi))
+
+
+def sk_launches(sk):
+    """This tree's fast launches and fix-ups, apart: (fast_fwd(x, m),
+    fixup_fwd(x, out, flags, m) -> the state its backward takes,
+    fast_bwd(x, g, m, forward flags), fixup_bwd(x, g, dx, flags, state,
+    m))."""
+    return (sk.fast_fwd, lambda x, o, f, m: sk.fixup_fwd(x, o, f, m, save=True), sk.fast_bwd,
+            sk.fixup_bwd)
+
+
+def parent_launches(plib, st):
+    """An earlier tree's, whose fix-ups keep nothing for the backward (its
+    C interface has no saved-state argument): the same four calls."""
+    import torch
+    from alan_tpu_torch.ops import smallk_kernel as sk
+
+    def fast_fwd(x, m):
+        nB, n, K, _ = x.shape
+        out = torch.empty((nB, (n + (1 << m) - 1) >> m, K, K), device="cuda")
+        flags = torch.zeros(out.shape[0] * out.shape[1], device="cuda", dtype=torch.int32)
+        ok(plib.smallk_segment_fwd(x.data_ptr(), out.data_ptr(), flags.data_ptr(), nB, n, K,
+                                   m, sk.layout_for(K, m, False), st()), "parent forward")
+        return out, flags
+
+    def fixup_fwd(x, out, flags, m):   # this interface keeps nothing for the backward
+        nB, n, K, _ = x.shape
+        ok(plib.smallk_fixup_fwd(x.data_ptr(), out.data_ptr(), flags.data_ptr(), None, nB, n,
+                                 K, m, st()), "parent forward fix-up")
+
+    def fast_bwd(x, g, m, forward_flags):   # this interface finds the flags itself
+        nB, n, K, _ = x.shape
+        dx = torch.empty_like(x)
+        flags = torch.zeros(g.shape[0] * g.shape[1], device="cuda", dtype=torch.int32)
+        ok(plib.smallk_segment_bwd(x.data_ptr(), g.data_ptr(), dx.data_ptr(), flags.data_ptr(),
+                                   nB, n, K, m, sk.layout_for(K, m, True), st()),
+           "parent backward")
+        return dx, flags
+
+    def fixup_bwd(x, g, dx, flags, state, m):
+        nB, n, K, _ = x.shape
+        ok(plib.smallk_fixup_bwd(x.data_ptr(), g.data_ptr(), dx.data_ptr(), flags.data_ptr(),
+                                 nB, n, K, m, st()), "parent backward fix-up")
+    return fast_fwd, fixup_fwd, fast_bwd, fixup_bwd
+
+
+def fixup_times(ms, launches):
+    """CUDA-event ms over the launch plan of ``ms``: the fast forward
+    launches alone (each with its flags' memset), the forward fix-ups
+    alone, and the same backward from seeded random gradients (given the
+    forward's flags where the interface takes them); the share of segment
+    jobs flagged."""
+    import torch
+    from alan_tpu_torch.ops import smallk_kernel as sk
+    fast_fwd, fixup_fwd, fast_bwd, fixup_bwd = launches
+    B, T, K, _ = ms.shape
+    plan = sk.launch_plan(T, K)
+    xs, outs, fflags, states, x = [], [], [], [], ms
+    for m in plan:
+        out, flags = fast_fwd(x, m)
+        states.append(fixup_fwd(x, out, flags, m))
+        xs.append(x)
+        outs.append(out)
+        fflags.append(flags)
+        x = out
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    gs = [torch.randn(o.shape, device="cuda", generator=gen) for o in outs]
+    dxs, bflags = [], []
+    for x, g, f, sv, m in zip(xs, gs, fflags, states, plan):   # with the forward's flags
+        dx, flags = fast_bwd(x, g, m, f)
+        fixup_bwd(x, g, dx, flags, sv, m)
+        dxs.append(dx)
+        bflags.append(flags)
+    torch.cuda.synchronize()
+    jobs = sum(f.numel() for f in fflags)
+    return {"plan": plan,
+            "flagged_share_fwd": sum(int(f.sum()) for f in fflags) / jobs,
+            "flagged_share_bwd": sum(int(f.sum()) for f in bflags) / jobs,
+            "fast_fwd_ms": cuda_ms(lambda: [fast_fwd(x, m) for x, m in zip(xs, plan)]),
+            "fixup_fwd_ms": cuda_ms(lambda: [fixup_fwd(x, o, f, m)
+                                             for x, o, f, m in zip(xs, outs, fflags, plan)]),
+            "fast_bwd_ms": cuda_ms(lambda: [fast_bwd(x, g, m, f)
+                                            for x, g, f, m in zip(xs, gs, fflags, plan)]),
+            "fixup_bwd_ms": cuda_ms(lambda: [fixup_bwd(x, g, d, f, sv, m)
+                                             for x, g, d, f, sv, m in zip(xs, gs, dxs, bflags,
+                                                                          states, plan)])}
+
+
+def time_variants(src, variants, peaked):
+    """The peaked fix-ups of each variant of the source (LABEL|OLD|NEW,
+    OLD replaced by NEW), its builds started together; the unchanged
+    source's timed again after each, as the comparison."""
+    import tempfile
+    from alan_tpu_torch import _build
+    from alan_tpu_torch.ops import native
+    from alan_tpu_torch.ops import smallk_kernel as sk
+    with open(src) as fh:
+        text = fh.read()
+    tmp = tempfile.mkdtemp()
+    builds = []
+    for i, v in enumerate(variants):
+        label, old, new = v.split("|")
+        old, new = old.replace("\\n", "\n"), new.replace("\\n", "\n")
+        if old not in text:
+            raise SystemExit(f"variant {label}: {old!r} is not in the source")
+        path = os.path.join(tmp, f"smallk_variant{i}.cu")
+        with open(path, "w") as fh:
+            fh.write(text.replace(old, new))
+        builds.append((label, _build._Build(f"smallk_variant{i}", [_build._nvcc()], path,
+                                            _build.NVCC_FLAGS + ["-I", os.path.dirname(src)])))
+    saved = native._LIBS.get("smallk_logmmexp")
+    for label, b in builds:
+        vlib = ctypes.CDLL(b.wait())
+        for fn, sig in sk._SIGNATURES.items():
+            getattr(vlib, fn).argtypes = sig
+            getattr(vlib, fn).restype = ctypes.c_int
+        native._LIBS["smallk_logmmexp"] = vlib
+        try:
+            emit({"case": f"variant {label}", **fixup_times(peaked, sk_launches(sk))})
+        finally:
+            native._LIBS["smallk_logmmexp"] = saved
+        emit({"case": "unchanged source", **fixup_times(peaked, sk_launches(sk))})
 
 
 def main():
@@ -127,6 +289,8 @@ def main():
     ap.add_argument("--phases", action="store_true",
                     help="also time each phase of a job with clock64()")
     ap.add_argument("--sass", help="write cuobjdump -sass of the kernels to this file")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="LABEL|OLD|NEW: time the fix-ups of the source with OLD replaced by NEW")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -235,83 +399,92 @@ def main():
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp()
+    peaked = peaked_chain(CHAIN, 26)
     if args.diag:
         with open(src) as fh:
-            text = fh.read().replace("expf(", "(").replace("log_normal(acc", "(acc")
+            text = re.sub(r"(?<!float )ex2_approx\(", "(", fh.read().replace(
+                "expf(", "(").replace("log_normal(acc", "(acc"))
         dsrc = os.path.join(tmp, "smallk_diag.cu")
         with open(dsrc, "w") as fh:
             fh.write(text)
         check("no expf/logf (wrong results)", plan, bind(build("smallk_diag", dsrc, [])[0]))
+        from alan_tpu_torch.ops import native
+        dlib = ctypes.CDLL(build("smallk_diag", dsrc, [])[0])
+        for fn, sig in sk._SIGNATURES.items():
+            getattr(dlib, fn).argtypes = sig
+        saved = native._LIBS.get("smallk_logmmexp")
+        native._LIBS["smallk_logmmexp"] = dlib
+        try:
+            emit({"case": "peaked fixups, no expf/ex2/logf (wrong results)",
+                  **fixup_times(peaked, sk_launches(sk))})
+        finally:
+            native._LIBS["smallk_logmmexp"] = saved
     if args.phases:
+        from alan_tpu_torch.ops import native
         with open(src) as fh:
             text = phase_source(fh.read())
         psrc = os.path.join(tmp, "smallk_phases.cu")
         with open(psrc, "w") as fh:
             fh.write(text)
-        plib = bind(build("smallk_phases", psrc, [])[0])
+        plib = ctypes.CDLL(build("smallk_phases", psrc, [])[0])
+        for fn, sig in sk._SIGNATURES.items():
+            getattr(plib, fn).argtypes = sig
         plib.smallk_phase_read.argtypes = [P]
-        xs, out = run_plan(plan[:1], plib)
-        run_back(xs, plan[:1], torch.randn_like(out), plib)
-        torch.cuda.synchronize()
-        plib.smallk_phase_reset()
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        gl = torch.randn_like(out)
-        ev[0].record()
-        xs, out = run_plan(plan[:1], plib)
-        ev[1].record()
-        run_back(xs, plan[:1], gl, plib)
-        ev[2].record()
-        torch.cuda.synchronize()
-        buf = (ctypes.c_ulonglong * 64)()
-        ok(plib.smallk_phase_read(buf), "phase read")
+        own_lib = native._LIBS.get("smallk_logmmexp")
+        native._LIBS["smallk_logmmexp"] = plib   # the module's launches go to this build
         blocks = torch.cuda.get_device_properties(0).multi_processor_count
-        for kind, tag in ((0, "fwd"), (1, "bwd")):
-            row = list(buf)[32 * kind: 32 * kind + 32]
-            launch_ms = ev[kind].elapsed_time(ev[kind + 1])
-            grid = blocks * (3 if kind == 0 else 2)     # FWD_BLOCKS, BWD_BLOCKS at covid's K
-            emit({"phases": tag, "jobs": row[31], "launch_ms": launch_ms,
-                  "avg_block_cycles": row[29] / grid,
-                  "cycles_per_ns": row[29] / grid / (launch_ms * 1e6),
-                  "avg_cycles": [round(v / row[31]) for v in row[:29] if v]})
-        del xs, out
+        per_sm = (3, 2, 2, 1)   # blocks an SM at covid's K: fast fwd, fast bwd, fix-ups
+        try:
+            for tag, x in (("random", ms), ("peaked", peaked)):
+                m = plan[0]
+                out, flags = sk.fast_fwd(x, m)
+                g1 = torch.randn_like(out)
+                sk.fast_bwd(x, g1, m)
+                torch.cuda.synchronize()
+                plib.smallk_phase_reset()
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+                ev[0].record()
+                out, flags = sk.fast_fwd(x, m)
+                ev[1].record()
+                saved = sk.fixup_fwd(x, out, flags, m, save=True)
+                ev[2].record()
+                dx, bflags = sk.fast_bwd(x, g1, m, flags)
+                ev[3].record()
+                sk.fixup_bwd(x, g1, dx, bflags, saved, m)
+                ev[4].record()
+                torch.cuda.synchronize()
+                buf = (ctypes.c_ulonglong * 128)()
+                ok(plib.smallk_phase_read(buf), "phase read")
+                for kind, name in enumerate(("fast_fwd", "fast_bwd", "fixup_fwd", "fixup_bwd")):
+                    row = list(buf)[32 * kind: 32 * kind + 32]
+                    at = (0, 2, 1, 3)[kind]
+                    launch_ms = ev[at].elapsed_time(ev[at + 1])
+                    grid = min(blocks * per_sm[kind], flags.numel())
+                    emit({"phases": name, "operands": tag, "jobs": row[31],
+                          "launch_ms": launch_ms, "avg_block_cycles": row[29] / grid,
+                          "cycles_per_ns": row[29] / grid / (launch_ms * 1e6),
+                          "avg_cycles": [round(v / max(row[31], 1)) for v in row[:29] if v]})
+        finally:
+            native._LIBS["smallk_logmmexp"] = own_lib
     shutil.rmtree(tmp)
 
+    emit({"case": "peaked fixups", **fixup_times(peaked, sk_launches(sk))})
+    if args.variant:
+        time_variants(src, args.variant, peaked)
     if args.parent:
         psrc = os.path.join(args.parent, "alan_tpu_torch", "csrc", "smallk_logmmexp.cu")
-        ppath, _ = build("smallk_parent", psrc, [])
+        ppath, plog = build("smallk_parent", psrc, ["-Xptxas", "-v"])
+        emit({"parent_ptxas": [ln.strip() for ln in plog.splitlines()
+                               if "registers" in ln or "spill" in ln or "Compiling entry" in ln]})
         plib = ctypes.CDLL(ppath)
-        plib.smallk_logmmexp_fwd.argtypes = [P, P, I, I, I, P]
-        plib.smallk_logmmexp_bwd.argtypes = [P, P, P, I, I, I, P]
-
-        def plevel(xin):
-            n = xin.shape[1]
-            out = torch.empty((B, (n + 1) // 2, K, K), device="cuda")
-            ok(plib.smallk_logmmexp_fwd(xin.data_ptr(), out.data_ptr(), B, n, K, st()), "parent")
-            if n % 2:
-                out[:, -1].copy_(xin[:, -1])
-            return out
-
-        pxs, cur = [], ms
-        while cur.shape[1] != 1:
-            pxs.append(cur)
-            cur = plevel(cur)
-        pgs = [torch.randn((B, (xi.shape[1] + 1) // 2, K, K), device="cuda") for xi in pxs]
-
-        def pfwd():
-            c = ms
-            while c.shape[1] != 1:
-                c = plevel(c)
-
-        def pbwd():
-            for xi, gi in zip(pxs, pgs):
-                dxi = torch.empty_like(xi)
-                ok(plib.smallk_logmmexp_bwd(xi.data_ptr(), gi.data_ptr(), dxi.data_ptr(),
-                                            B, xi.shape[1], K, st()), "parent")
-                if xi.shape[1] % 2:
-                    dxi[:, -1].copy_(gi[:, -1])
-
-        emit({"parent_levels": len(pxs), "parent_fwd_ms": cuda_ms(pfwd),
-              "parent_bwd_ms": cuda_ms(pbwd)})
+        plib.smallk_segment_fwd.argtypes = [P, P, P, I, I, I, I, I, P]
+        plib.smallk_segment_bwd.argtypes = [P, P, P, P, I, I, I, I, I, P]
+        plib.smallk_fixup_fwd.argtypes = [P, P, P, P, I, I, I, I, P]
+        plib.smallk_fixup_bwd.argtypes = [P, P, P, P, I, I, I, I, P]
+        for tag, x in (("peaked", peaked), ("random", ms)):   # parent, this, this, parent
+            for who in ("parent", "this tree", "this tree", "parent"):
+                launches = parent_launches(plib, st) if who == "parent" else sk_launches(sk)
+                emit({"case": f"{who} {tag} fixups", **fixup_times(x, launches)})
     emit({"card_after": smi()})
 
 

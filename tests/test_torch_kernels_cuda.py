@@ -392,12 +392,115 @@ def test_peaked_fused_kernel_matches_plain_and_f64(card):
 
 
 def test_smallk_fixup_shared_memory_matches_the_planner(card):
+    """The fix-ups' layouts: bytes of shared memory, the floats of device
+    memory the backward's records take where they do not fit, and the
+    floats the forward keeps for the backward."""
+    import ctypes
     from alan_tpu_torch.ops.native import load
     lib = load("smallk_logmmexp", tsk._SIGNATURES)
-    for K in (1, 2, 30, 45, 100, 128):
+    records = ctypes.c_int(-1)
+    for K in (1, 2, 7, 30, 45, 64, 97, 98, 99, 100, 128):
         for m in (1, 2, 3, 4, 5):
+            assert lib.smallk_fixup_saved_floats(K, m) == tsk.fixup_saved(K, m)
             for bwd in (False, True):
-                assert lib.smallk_fixup_smem_bytes(K, m, int(bwd)) == tsk.fixup_smem(K, m, bwd)
+                nbytes = lib.smallk_fixup_smem_bytes(K, m, int(bwd), ctypes.byref(records))
+                _, rec, want = tsk.fixup_layout(K, m, bwd)
+                assert nbytes == want == tsk.fixup_smem(K, m, bwd)
+                assert records.value == (tsk.fixup_records(K, m) if bwd and want and not rec
+                                         else 0)
+
+
+def _inner_only(rng, B, K, device):
+    """Segments of 8 operators whose level-1 products keep c >= 1 and whose
+    level-2 product (0 1)(2 3) loses every term to the separate shifts:
+    (0 1) has rows v (spread 1000), (2 3) columns u, peaking apart."""
+    x = (rng.standard_normal((B, 8, K, K)) * 2 - 1)
+    v, u = rng.uniform(-1000, 0, (B, K)), rng.uniform(-1000, 0, (B, K))
+    x[:, 0] = -1000
+    x[:, 0, :, 0] = 0
+    x[:, 1] = v[:, None, :] - 5
+    x[:, 1, 0, :] = v
+    x[:, 2] = u[:, :, None] - 5
+    x[:, 2, :, 0] = u
+    x[:, 3] = -1000
+    x[:, 3, 0, :] = 0
+    return torch.tensor(x.astype(np.float32), device=device)
+
+
+def _fixup_operands(kind, rng, card):
+    """(operators, m) of one launch for the fix-up cases."""
+    if kind == "mixed":       # flagged and unflagged segments in one launch
+        x = torch.cat([_chain_operands((3, 17, 30), False, 13, card)[0],
+                       _peaked(rng, (3,), 30, 17, card)])
+        x[0, 8:16] = _peaked(rng, (1,), 30, 8, card)[0]
+        return x, 3
+    if kind == "inner_only":
+        return _inner_only(rng, 4, 30, card), 3
+    if kind == "no_finite_term":
+        x = _peaked(rng, (3,), 30, 9, card)
+        x[0, 2, 4, :] = -np.inf   # a row of A: entries (4, k) have no finite term
+        x[1, 5, :, 7] = -np.inf   # a column of B
+        x[2, 6] = -np.inf         # a whole operator: no entry of its product has one
+        return x, 3
+    K, T = kind
+    return _peaked(rng, (5,), K, T, card), tsk.launch_plan(T, K)[0]
+
+
+@pytest.mark.parametrize("kind", ["mixed", "inner_only", "no_finite_term",
+                                  (7, 17), (30, 9), (45, 9), (64, 3),
+                                  (30, 3), (30, 8), (30, 17)])
+def test_smallk_fixups_match_plain_version(card, kind):
+    """One launch (fast kernels and fix-ups) against the plain version:
+    values rtol/atol 1e-5, gradients 1e-4, the joint entries counted alike.
+    Unflagged segments are bitwise the fast kernels' (a launch without
+    flags), and the backward given the forward's flags is bitwise the one
+    that finds them itself.  The kernels' gradients are finite, and 0 for an operand entry
+    that is -inf (the plain version's autograd gives NaN there)."""
+    from alan_tpu_torch.ops.native import load, ptr, stream
+    x, m = _fixup_operands(kind, np.random.default_rng(50), card)
+    x = x.contiguous()
+    xg = x.clone().requires_grad_(True)
+    _, flags = tsk.fast_fwd(x, m)
+    assert int(flags.sum()) > 0
+    launches = (tsk.FWD_LAUNCHES, tsk.BWD_LAUNCHES)
+    got, n_kernel = _joints(lambda: tsk.logmmexp_segment(xg, m))
+    assert (tsk.FWD_LAUNCHES - launches[0], tsk.BWD_LAUNCHES - launches[1]) == (1, 0)
+    g = torch.randn(got.shape, device=card, generator=torch.Generator(card).manual_seed(3))
+    (dx,) = torch.autograd.grad(got, [xg], g)
+    xr = x.clone().requires_grad_(True)
+    want, n_plain = _joints(lambda: tsk.reference_segment(xr, m))
+    (dwant,) = torch.autograd.grad(want, [xr], g)
+    assert n_kernel == n_plain > 0
+    torch.testing.assert_close(got.detach(), want.detach(), rtol=1e-5, atol=1e-5)
+    assert torch.isfinite(dx).all()
+    fin = torch.isfinite(x)
+    assert (dx[~fin] == 0).all()
+    if kind == "no_finite_term":
+        # beside an entry whose c is 0 the plain version's autograd takes
+        # g / FLT_MIN times 0, and gives NaN where that overflows
+        fin &= ~torch.isnan(dwant)
+    torch.testing.assert_close(dx[fin], dwant[fin], rtol=1e-4, atol=1e-4)
+    # the backward that finds its flags itself: bitwise the one given the
+    # forward's (which skips their segments)
+    out2, flags2 = tsk.fast_fwd(x, m)
+    saved = tsk.fixup_fwd(x, out2, flags2, m, save=True)
+    own, own_flags = tsk.fast_bwd(x, g, m)
+    tsk.fixup_bwd(x, g, own, own_flags, saved, m)
+    assert torch.equal(own_flags, flags) and torch.equal(out2, got.detach())
+    assert torch.equal(own, dx)
+    # unflagged segments: bitwise the fast kernels' alone (no flags, no stop)
+    lib = load("smallk_logmmexp", tsk._SIGNATURES)
+    nB, n, K, _ = x.shape
+    fast, fast_dx = torch.empty_like(got), torch.empty_like(x)
+    assert lib.smallk_segment_fwd(ptr(x), ptr(fast), None, nB, n, K, m,
+                                  tsk.layout_for(K, m, False), stream(x)) == 0
+    assert lib.smallk_segment_bwd(ptr(x), ptr(g), ptr(fast_dx), None, nB, n, K, m,
+                                  tsk.layout_for(K, m, True), stream(x)) == 0
+    torch.cuda.synchronize()
+    seg = flags.reshape(nB, -1).bool()
+    assert torch.equal(got.detach()[~seg], fast[~seg])
+    per_op = seg.repeat_interleave(1 << m, 1)[:, :n]
+    assert torch.equal(dx[~per_op], fast_dx[~per_op])
 
 
 @pytest.mark.parametrize("n,K,m", [(109, 30, 3), (14, 30, 3), (2, 30, 1), (11, 5, 2)])

@@ -357,6 +357,25 @@ def test_launch_plan():
         tsk.launch_plan(4, 129)
 
 
+def test_fixup_layouts_fit_every_launch_the_plan_picks():
+    """The joint-shift fix-ups' shared memory (ops/smallk_kernel.py's
+    mirror of smallk_logmmexp.cu's layouts) stays within a block's 227 KB
+    at every (K, m) the launch plan picks for K <= 128, keeping the
+    backward's records in shared memory for K <= 89; at covid's (30, 3) the
+    forward stages its segment and two of its blocks share an SM."""
+    picked = {(K, m) for K in range(1, tsk.MAX_K + 1) for n in range(2, 70)
+              for m in tsk.launch_plan(n, K)}
+    for K, m in picked:
+        for backward in (False, True):
+            x0, rec, nbytes = tsk.fixup_layout(K, m, backward)
+            assert 0 < nbytes <= tsk.SMEM_PER_BLOCK, (K, m, backward)
+            assert nbytes == tsk.fixup_smem(K, m, backward)
+            assert not backward or rec == (K <= 89), (K, m)
+    x0, _, nbytes = tsk.fixup_layout(30, 3, False)
+    assert x0 == 1 and 2 * (nbytes + tsk.SMEM_RESERVED) <= tsk.SMEM_PER_SM
+    assert tsk.fixup_layout(30, 3, True)[:2] == (1, 1)
+
+
 def test_smallk_chain_runs_the_launch_plan(monkeypatch):
     """On the CPU the small-K route runs the plan, one plain launch each."""
     calls = []
