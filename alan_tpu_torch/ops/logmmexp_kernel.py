@@ -36,10 +36,16 @@ are then under 2^-66 of the sum) and whose joint max ``max_k(a_ik +
 b_kj)`` is finite is recomputed with the joint shift, against its largest
 term (:func:`joint_repair`); every other entry is bitwise what it was.  On the
 card a fix-up kernel follows the product: it reads ``log(c + tiny)`` back
-from the output (flagged below ``ln 2^-60``), keeps the flags for the
-backward and recomputes the flagged entries; the backward's torch ops leave
-the flagged entries out and a second fix-up kernel adds their gradients,
-``g exp(a_ik + b_kj - out_ij)``.
+from the output (flagged below ``ln 2^-60``), lists each tile's flagged
+entries and walks each once (its first argmax and the sum together).
+Where a gradient is wanted it also keeps each flagged entry's record (the
+reference terms, ``-log2`` of the sum and the argmax t*; by row and by
+column) and bit masks of the flagged entries by row and by column
+(:func:`fixup_masks`); the backward's torch ops leave the flagged entries
+out and a second fix-up kernel adds their gradients, ``g exp(a_ik + b_kj -
+out_ij)``, from what was kept, in a fixed order (no atomics).
+:func:`reference_fixup_state` and :func:`reference_fixup_bwd` are their
+plain versions.
 
 On CPU tensors the plain version, :func:`reference_logmmexp`, runs instead,
 under ordinary autograd.  A CUDA tensor gets the kernel or an error.
@@ -72,6 +78,8 @@ JOINT_COUNT = None
 BM, BK, SCALE_BITS = 128, 32, 32
 #: wgmma widths the product kernel is built for
 TILE_WIDTHS = (64, 128)
+#: the fix-ups' tiles: rows and columns of the entries a forward block lists
+FIX_TM, FIX_TN = 64, 32
 
 _INT_MAX = 2 ** 31 - 1
 _TINY = torch.finfo(torch.float32).tiny
@@ -80,14 +88,16 @@ _SIGNATURES = {
     "logmmexp_scratch_floats": [INT, INT, INT, INT, INT],
     "logmmexp_prepass": [PTR] * 5 + [INT] * 5 + [PTR],
     "logmmexp_product": [PTR] * 4 + [INT] * 5 + [PTR],
-    "logmmexp_fixup": [PTR] * 7 + [INT] * 4 + [PTR],
-    "logmmexp_fixup_bwd": [PTR] * 6 + [INT] * 4 + [PTR],
+    "logmmexp_fixup": [PTR] * 11 + [INT] * 4 + [PTR],
+    "logmmexp_fixup_bwd": [PTR] * 10 + [INT] * 4 + [PTR],
+    "logmmexp_fixup_mask_words": [INT] * 4,
 }
 
 
 def _lib():
     lib = load("logmmexp", _SIGNATURES)
     lib.logmmexp_scratch_floats.restype = ctypes.c_longlong
+    lib.logmmexp_fixup_mask_words.restype = ctypes.c_longlong
     return lib
 
 
@@ -144,12 +154,12 @@ def _joint_rows(a, b):
     """Rows ``a`` (r, K) against their operators ``b`` (r, K, N): the
     reference term of each entry, the first argmax t* of ``a_t + b_tn`` (al
     = a_t*, be = b_t*n), the exponents ``e = (a_t - al) + (b_tn - be)``
-    (r, K, N) and whether the max is finite."""
+    (r, K, N), whether the max is finite, and t* (r, N)."""
     m, t = (a[:, :, None] + b).max(dim=1)
     finite = torch.isfinite(m)
     al = torch.where(finite, a.gather(1, t), 0.0)
     be = torch.where(finite, b.gather(1, t[:, None, :])[:, 0], 0.0)
-    return al, be, (a[:, :, None] - al[:, None, :]) + (b - be[:, None, :]), finite
+    return al, be, (a[:, :, None] - al[:, None, :]) + (b - be[:, None, :]), finite, t
 
 
 class _JointValues(torch.autograd.Function):
@@ -168,7 +178,7 @@ class _JointValues(torch.autograd.Function):
         finite = torch.empty((n * M, N), dtype=torch.bool, device=A.device)
         step = max(1, _JOINT_CHUNK // (K * N))
         for r in range(0, n * M, step):
-            al, be, e, fin = _joint_rows(rows[r:r + step], B[pair[r:r + step]])
+            al, be, e, fin, _ = _joint_rows(rows[r:r + step], B[pair[r:r + step]])
             vals[r:r + step] = torch.where(fin, al + be + torch.log(torch.exp(e).sum(1)), 0.0)
             finite[r:r + step] = fin
         ctx.save_for_backward(A, B)
@@ -185,7 +195,7 @@ class _JointValues(torch.autograd.Function):
         dA, dB = torch.zeros_like(rows), torch.zeros_like(B)
         step = max(1, _JOINT_CHUNK // (K * N))
         for r in range(0, n * M, step):
-            _, _, e, fin = _joint_rows(rows[r:r + step], B[pair[r:r + step]])
+            _, _, e, fin, _ = _joint_rows(rows[r:r + step], B[pair[r:r + step]])
             L = torch.where(fin, torch.log(torch.exp(e).sum(1)), 0.0)
             w = torch.where(fin[:, None, :], torch.exp(e - L[:, None, :]), 0.0)
             w = w * g[r:r + step, None, :]                      # (r, K, N)
@@ -203,7 +213,11 @@ def joint_repair(out, C, A, B):
     close, however large the log-densities).  The batch axes of A and B
     broadcast; only products with a flagged entry are recomputed, and the
     plain version synchronises with the host to find them.
-    Differentiable; unflagged entries are bitwise ``out``'s."""
+    Differentiable; unflagged entries are bitwise ``out``'s, value and
+    gradient.  A flagged entry with no finite term keeps its value and
+    passes no gradient, as on the card: through ``log(c + tiny)`` its
+    ``g / tiny`` summed over a row or column can overflow, and times the
+    zero exponentials it meets gives NaN."""
     flag = C.detach() < JOINT_BELOW
     if not bool(flag.any()):
         return out
@@ -216,7 +230,9 @@ def joint_repair(out, C, A, B):
     vals, finite = _JointValues.apply(A3[pairs], B3[pairs])
     take = f3[pairs] & finite
     count_joint(take.sum())
-    out3 = out3.index_put((pairs,), torch.where(take, vals, out3[pairs]))
+    old = out3[pairs]
+    new = torch.where(take, vals, torch.where(f3[pairs], old.detach(), old))
+    out3 = out3.index_put((pairs,), new)
     return out3.reshape(out.shape)
 
 
@@ -228,6 +244,83 @@ def reference_logmmexp(A, B):
     C = torch.matmul(torch.exp(A - a_max), torch.exp(B - b_max))
     out = torch.log(C + torch.finfo(C.dtype).tiny) + a_max + b_max
     return joint_repair(out, C, A, B)
+
+
+# ---- what the fix-ups keep for the backward, and its plain versions ----------------
+
+_LOG2E = 1.4426950408889634
+
+
+def fixup_tiles(M, N):
+    """(row tiles, column tiles) of the fix-ups: :data:`FIX_TM` rows by
+    :data:`FIX_TN` columns."""
+    return _cdiv(M, FIX_TM), _cdiv(N, FIX_TN)
+
+
+def fixup_mask_words(nb, M, N, cols):
+    """Words of the kept masks: by row (``cols`` false; 32 bits each, nb M
+    ceil(N / FIX_TN)) or by column (64 bits each, nb N ceil(M / FIX_TM))."""
+    mt, nt = fixup_tiles(M, N)
+    return nb * N * mt if cols else nb * M * nt
+
+
+def fixup_masks(flags):
+    """The fix-up's masks of the flagged entries (nb, M, N) bool: by row,
+    bit c of word [b, i, J] is ``flags[b, i, FIX_TN J + c]`` (int32, (nb,
+    M, ceil(N / FIX_TN))); by column, bit r of word [b, j, I] is
+    ``flags[b, FIX_TM I + r, j]`` (int64, (nb, N, ceil(M / FIX_TM)))."""
+    nb, M, N = flags.shape
+    mt, nt = fixup_tiles(M, N)
+    f = F.pad(flags.to(torch.int64), (0, nt * FIX_TN - N, 0, mt * FIX_TM - M))
+    bits = lambda n: torch.arange(n, device=flags.device)
+    rows = (f.reshape(nb, mt * FIX_TM, nt, FIX_TN) << bits(FIX_TN)).sum(-1)
+    cols = (f.transpose(1, 2).reshape(nb, nt * FIX_TN, mt, FIX_TM) << bits(FIX_TM)).sum(-1)
+    return rows[:, :M].to(torch.int32), cols[:, :N]
+
+
+def reference_fixup_state(A, B, flags):
+    """Plain version of the record the forward fix-up keeps, where a
+    gradient is wanted, for (nb, M, K) @ (nb, K, N) float32 and its flags:
+    (nb, M, N, 4) float32 holding at each flagged entry (al, be,
+    -log2(sum), t*), with t* the first argmax of ``a_t + b_t`` (as int32
+    bits), al = a_t*, be = b_t* and sum = ``sum_t exp((a_t - al) + (b_t -
+    be))``; (0, 0, -inf, 0) where no term is finite, 0 at the other
+    entries.  Rows in chunks, as :class:`_JointValues` takes them."""
+    nb, M, K = A.shape
+    N = B.shape[2]
+    rec = torch.zeros((nb * M, N, 4), dtype=torch.float32, device=A.device)
+    rows, pair = A.reshape(nb * M, K), torch.arange(nb, device=A.device).repeat_interleave(M)
+    f = flags.reshape(nb * M, N)
+    step = max(1, _JOINT_CHUNK // (K * N))
+    for r in range(0, nb * M, step):
+        al, be, e, fin, t = _joint_rows(rows[r:r + step], B[pair[r:r + step]])
+        nl = torch.where(fin, -torch.log2(torch.exp(e).sum(1)), -torch.inf)
+        t = torch.where(fin, t, 0).to(torch.int32).view(torch.float32)
+        rec[r:r + step] = torch.where(f[r:r + step, :, None],
+                                      torch.stack([al, be, nl, t], -1), 0.0)
+    return rec.reshape(nb, M, N, 4)
+
+
+def reference_fixup_bwd(A, B, g, rec, flags):
+    """Plain version of the backward fix-up: the gradients of the flagged
+    entries from their records (:func:`reference_fixup_state`), ``w_ijt =
+    g_ij 2^(((a_it - al) + (b_tj - be)) log2(e) - log2(sum))``, 0 where no
+    term is finite: -> (dA, dB) of those entries alone."""
+    nb, M, K = A.shape
+    N = B.shape[2]
+    rows, pair = A.reshape(nb * M, K), torch.arange(nb, device=A.device).repeat_interleave(M)
+    R, g = rec.reshape(nb * M, N, 4), g.reshape(nb * M, N)
+    take = flags.reshape(nb * M, N) & (R[..., 2] > -torch.inf) & (g != 0)
+    dA, dB = torch.zeros_like(rows), torch.zeros_like(B)
+    step = max(1, _JOINT_CHUNK // (K * N))
+    for r in range(0, nb * M, step):
+        al, be, nl = (R[r:r + step, None, :, c] for c in range(3))
+        e = (rows[r:r + step, :, None] - al) + (B[pair[r:r + step]] - be)
+        w = torch.where(take[r:r + step, None, :],
+                        g[r:r + step, None, :] * torch.exp2(e * _LOG2E + nl), 0.0)
+        dA[r:r + step] = w.sum(2)
+        dB.index_add_(0, pair[r:r + step], w)
+    return dA.reshape(nb, M, K), dB
 
 
 # ---- the pre-pass's layout and plain version ------------------------------------
@@ -365,34 +458,64 @@ def _product(a_max, b_max, split, nb, M, K, N, bn):
     return out
 
 
-def _fixup(A, B, a_max, b_max, out):
+def _kept_state(nb, M, N, device):
+    """Empty buffers for what the forward fix-up keeps for the backward:
+    (records by row (nb, M, N, 4) and by column (nb, N, M, 4) float32, row
+    masks int32, column masks int64)."""
+    return (torch.empty((nb, M, N, 4), device=device, dtype=torch.float32),
+            torch.empty((nb, N, M, 4), device=device, dtype=torch.float32),
+            torch.empty((fixup_mask_words(nb, M, N, False),), device=device,
+                        dtype=torch.int32),
+            torch.empty((fixup_mask_words(nb, M, N, True),), device=device,
+                        dtype=torch.int64))
+
+
+def _fixup(A, B, a_max, b_max, out, save=False):
     """The forward fix-up kernel: out's flagged entries recomputed in place;
-    returns the flags (nb, M, N), bool."""
+    returns the flags (nb, M, N) bool and, where ``save`` is set, what the
+    backward fix-up takes (:func:`_kept_state`), else None."""
     nb, M, K = A.shape
     N = B.shape[2]
     flags = torch.empty((nb, M, N), device=A.device, dtype=torch.bool)
+    kept = _kept_state(nb, M, N, A.device) if save else None
+    rec, recT, rows, cols = kept if save else (None,) * 4
     with torch.cuda.device(A.device):
         rc = _lib().logmmexp_fixup(ptr(A), ptr(B), ptr(a_max), ptr(b_max), ptr(out),
-                                   ptr(flags), ptr(joint_counter(A.device)),
-                                   nb, M, K, N, stream(A))
+                                   ptr(flags), ptr(joint_counter(A.device)), ptr(rec),
+                                   ptr(recT), ptr(rows), ptr(cols), nb, M, K, N, stream(A))
     check_status(rc, "logmmexp_fixup")
-    return flags
+    return flags, kept
 
 
-def _launch(A, B):
+def _launch(A, B, save=False):
     """The kernels on (nb, M, K) @ (nb, K, N) CUDA float32 operands: ->
-    (out, the fix-up's flags)."""
+    (out, the fix-up's flags, what it kept for the backward or None)."""
     global LAUNCHES
     nb, M, K, N = _check(A, B)
     bn = tile_n(nb, M, N, _sms(A.device))
     a_max, b_max, split = _prepass(A, B, bn)
     out = _product(a_max, b_max, split, nb, M, K, N, bn)
-    flags = _fixup(A, B, a_max, b_max, out)
+    flags, kept = _fixup(A, B, a_max, b_max, out, save)
     LAUNCHES += 1
-    return out, flags
+    return out, flags, kept
 
 
-def _launch_bwd(A, B, flags, g):
+def _fixup_bwd(A, B, g, kept, dA, dB):
+    """The backward fix-up kernel: the flagged entries' gradients, from
+    what the forward fix-up kept, added to dA and dB in place."""
+    if kept is None:
+        raise ValueError("the backward fix-up takes what the forward fix-up kept")
+    nb, M, K = A.shape
+    rec, recT, rows, cols = kept
+    gT = g.transpose(1, 2).contiguous()
+    with torch.cuda.device(A.device):
+        rc = _lib().logmmexp_fixup_bwd(ptr(A), ptr(B), ptr(g), ptr(gT), ptr(rec), ptr(recT),
+                                       ptr(rows), ptr(cols), ptr(dA), ptr(dB), nb, M, K,
+                                       B.shape[2], stream(A))
+    check_status(rc, "logmmexp_fixup_bwd")
+
+
+def _launch_bwd(A, B, flags, kept, g):
     """The backward on the card: the unflagged entries' gradients by torch
     ops (``alan_tpu``'s plain jnp backward, ``pallas_logmmexp.py:82-94``),
     the flagged entries' added by the fix-up kernel."""
@@ -402,11 +525,7 @@ def _launch_bwd(A, B, flags, g):
     G = (g / (torch.matmul(Ea, Eb) + _TINY)).masked_fill(flags, 0.0)
     dA = Ea * torch.matmul(G, Eb.transpose(-1, -2))
     dB = Eb * torch.matmul(Ea.transpose(-1, -2), G)
-    nb, M, K = A.shape
-    with torch.cuda.device(A.device):
-        rc = _lib().logmmexp_fixup_bwd(ptr(A), ptr(B), ptr(g), ptr(flags), ptr(dA), ptr(dB),
-                                       nb, M, K, B.shape[2], stream(A))
-    check_status(rc, "logmmexp_fixup_bwd")
+    _fixup_bwd(A, B, g, kept, dA, dB)
     BWD_LAUNCHES += 1
     return dA, dB
 
@@ -414,13 +533,14 @@ def _launch_bwd(A, B, flags, g):
 class _LogMMExp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, A, B):
-        out, flags = _launch(A, B)
-        ctx.save_for_backward(A, B, flags)
+        out, flags, kept = _launch(A, B, save=any(ctx.needs_input_grad))
+        ctx.save_for_backward(A, B, flags, *(kept or ()))
         return out
 
     @staticmethod
     def backward(ctx, g):
-        return _launch_bwd(*ctx.saved_tensors, g.contiguous())
+        A, B, flags, *kept = ctx.saved_tensors
+        return _launch_bwd(A, B, flags, tuple(kept) or None, g.contiguous())
 
 
 def logmmexp_fused(A, B):

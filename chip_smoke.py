@@ -308,6 +308,8 @@ LR_QEM = 0.1
 FUSED_MAIN = (2, 1000, 1000, 1000)
 FUSED_TOP = (1, 1000, 1000, 1000)
 K_AR1, AR1_ELBOS = 1000, 20
+#: peaked pairs and K of the covid K sweep's K = 300 chain level
+PEAKED_K300 = (192, 300)
 #: the posterior read-out: grouped MovieLens K=1000 after 5 QEM steps, with
 #: 5 held-out films; importance draws per call; bench_is_draws' N
 POSTERIOR_QEM_STEPS, N_TEST_FILMS, N_DRAWS = 5, 5, 1000
@@ -1109,6 +1111,9 @@ def phase_fused_kernel():
     _check_fused("below_flt_min", *_small_sum_operands((2, 300, 128, 300), 36, (45, 55),
                                                        (90, 110), 43), gate=False)
     peaked = _check_peaked_fused("peaked_k128", (60, 128), seed=38)
+    # the chain of the covid K sweep's K = 300 point (16 regions, 25 days:
+    # 192 pairs at its first level), float64 on its first 24 products
+    k300 = _check_peaked_fused("peaked_k300", PEAKED_K300, seed=39, n_f64=24, f64_chunk=4)
     times = {}
     for tag, shape, seed in (("ar1_top", FUSED_TOP, 37), ("ar1_level", FUSED_MAIN, 30)):
         A, B = _fused_operands(shape, seed)
@@ -1122,16 +1127,26 @@ def phase_fused_kernel():
                 prepass_ms=t["prepass_ms"], product_ms=t["product_ms"], eager_ms=t["eager_ms"],
                 top_level_ms=top["ms"], dense_route_ms=t["plain_ms"],
                 peaked_k128_ms=peaked["ms"], peaked_k128_bwd_ms=peaked["bwd_ms"],
-                peaked_k128_max_abs_err=peaked["out"]["max_abs_err"])
+                peaked_k128_max_abs_err=peaked["out"]["max_abs_err"],
+                peaked_k300={k: k300[k] for k in (
+                    "ms", "fixup_ms", "fixup_bwd_ms", "fixup_bound_ms", "bwd_ms",
+                    "joint_entries_kernel", "entries", "plain_ms", "kept_bytes",
+                    "peak_growth_saving_bytes")},
+                peaked_k300_max_abs_err=k300["out"]["max_abs_err"])
 
 
-def _check_peaked_fused(tag, shape, seed):
+def _check_peaked_fused(tag, shape, seed, n_f64=None, f64_chunk=None):
     """The fused kernel with its fix-ups on peaked operators (covid's
-    scales at K = 128: ``_peaked_chain``'s first two operators of each of
-    ``nb`` chains) against the repaired plain version (value rtol/atol
-    1e-5, the gradients of a random linear function of the product 1e-4)
-    and an exact float64 evaluation; one forward and one backward fix-up
-    launch; the entries that took the joint shift; times."""
+    scales at K: ``_peaked_chain``'s first two operators of each of ``nb``
+    chains) against the repaired plain version (value rtol/atol 1e-5, the
+    gradients of a random linear function of the product 1e-4) and an exact
+    float64 evaluation (of the first ``n_f64`` products, ``f64_chunk`` at a
+    time); one forward and one backward fix-up launch; the entries that
+    took the joint shift, kernel and plain (within 0.1%); the backward
+    bitwise the same in two calls; times: the whole forward, the forward
+    fix-up alone (the whole less the pre-pass and product), the backward,
+    the backward fix-up alone, each fix-up beside its bound (K exponentials
+    a joint entry at PEAK_EXP_PER_S)."""
     import torch
     from alan_tpu_torch.ops import logmmexp_kernel as lk
     nb, K = shape
@@ -1140,21 +1155,29 @@ def _check_peaked_fused(tag, shape, seed):
     W = torch.randn((nb, K, K), device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(seed))
 
-    def run(f, A, B):
+    def run(f, A, B, W):
         a, b = A.clone().requires_grad_(True), B.clone().requires_grad_(True)
         y = f(a, b)
         return (y.detach(), *torch.autograd.grad((y * W.to(y.dtype)).sum(), [a, b]))
     before = (lk.LAUNCHES, lk.BWD_LAUNCHES)
-    got, joints_k = _joint_counted(lambda: run(lk.logmmexp_fused, A, B))
+    got, joints_k = _joint_counted(lambda: run(lk.logmmexp_fused, A, B, W))
     launches = [lk.LAUNCHES - before[0], lk.BWD_LAUNCHES - before[1]]
-    want, joints_p = _joint_counted(lambda: run(lk.reference_logmmexp, A, B))
-    exact = run(_f64_logmmexp_exact, A.double(), B.double())
+    want, joints_p = _joint_counted(lambda: run(lk.reference_logmmexp, A, B, W))
+    n = n_f64 or nb
+    step = f64_chunk or n
+    parts = [run(_f64_logmmexp_exact, A[c:c + step].double(), B[c:c + step].double(),
+                 W[c:c + step]) for c in range(0, n, step)]
+    exact = [torch.cat(p) for p in zip(*parts)]
     res = {"phase": "kernels", "kernel": "logmmexp", "case": tag, "nb_M_K_N": [nb, K, K, K],
            "launches_fwd_bwd": launches, "joint_entries_kernel": joints_k,
-           "joint_entries_plain": joints_p, "entries": nb * K * K, "ok": True}
+           "joint_entries_plain": joints_p, "entries": nb * K * K, "f64_products": n,
+           "ok": True}
     for name, g, w, e, tol in zip(("out", "dA", "dB"), got, want, exact, (1e-5, 1e-4, 1e-4)):
-        _check(res, "kernels", tag, name, g, w, e, tol, tol, False)
-        bad = ((g.double() - e).abs() - tol * e.abs()).max().item()
+        _check(res, "kernels", tag, name, g, w, w.double(), tol, tol, False)
+        # float64 covers the first n products
+        res[name]["err_vs_f64"] = (g[:n].double() - e).abs().max().item()
+        res[name]["plain_err_vs_f64"] = (w[:n].double() - e).abs().max().item()
+        bad = ((g[:n].double() - e).abs() - tol * e.abs()).max().item()
         res[name]["f64_max_err_over_rtol"] = bad
         if bad > tol:
             res["ok"] = False
@@ -1162,13 +1185,65 @@ def _check_peaked_fused(tag, shape, seed):
     if launches != [1, 1] or joints_k == 0 or abs(joints_k - joints_p) > joints_p // 1000:
         res["ok"] = False
         fail("kernels", f"{tag}: launches {launches}, joint entries {joints_k} / {joints_p}")
-    _, flags = lk._launch(A, B)
+    _, flags, kept = lk._launch(A, B, save=True)
     g = W.clone()
-    res["ms"] = graph_ms(lambda: lk._launch(A, B))
-    res["bwd_ms"] = graph_ms(lambda: lk._launch_bwd(A, B, flags, g))
+    first = lk._launch_bwd(A, B, flags, kept, g)
+    second = lk._launch_bwd(A, B, flags, kept, g)
+    res["bwd_bitwise_repeatable"] = all(torch.equal(x, y) for x, y in zip(first, second))
+    if not res["bwd_bitwise_repeatable"]:
+        res["ok"] = False
+        fail("kernels", f"{tag}: two backward calls differ")
+    res.update(_fixup_times(A, B, g, joints_k))
     # the plain version finds its flagged entries on the host: no graph
     res["plain_ms"] = cuda_ms(lambda: lk.reference_logmmexp(A, B), reps=5, inner=1)
     emit(res)
+    return res
+
+
+def _peak_growth(fn):
+    """Bytes by which ``fn()`` raises the card's allocated memory at its
+    peak, what it returns included."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    del out
+    return grown
+
+
+def _fixup_times(A, B, g, joints):
+    """Device ms (CUDA graphs of 20) of the fused route on (A, B): the
+    forward as a gradient-free call makes it and as one that keeps state
+    for the backward, the pre-pass and product alone, the forward fix-up
+    (the difference) and the backward and its fix-up alone, given the
+    output's gradient ``g``; each fix-up beside its bound, K exponentials
+    a joint entry (the backward forms each weight twice, so it takes 2 K);
+    the bytes kept for the backward, and the peak memory growth of the
+    forward with and without them and of the backward."""
+    import torch
+    from alan_tpu_torch.ops import logmmexp_kernel as lk
+    nb, M, K = A.shape
+    N = B.shape[2]
+    bn = lk.tile_n(nb, M, N, lk._sms(A.device))
+    _, flags, kept = lk._launch(A, B, save=True)
+    dA, dB = torch.zeros_like(A), torch.zeros_like(B)
+    res = {"ms": graph_ms(lambda: lk._launch(A, B)),
+           "saving_ms": graph_ms(lambda: lk._launch(A, B, save=True)),
+           "prepass_product_ms": graph_ms(
+               lambda: lk._product(*lk._prepass(A, B, bn), nb, M, K, N, bn)),
+           "bwd_ms": graph_ms(lambda: lk._launch_bwd(A, B, flags, kept, g)),
+           "fixup_bwd_ms": graph_ms(lambda: lk._fixup_bwd(A, B, g, kept, dA, dB)),
+           "fixup_bound_ms": joints * K / PEAK_EXP_PER_S * 1e3}
+    res.update(kept_bytes=sum(t.numel() * t.element_size() for t in kept),
+               peak_growth_bytes=_peak_growth(lambda: lk._launch(A, B)),
+               peak_growth_saving_bytes=_peak_growth(lambda: lk._launch(A, B, save=True)),
+               bwd_peak_growth_bytes=_peak_growth(lambda: lk._launch_bwd(A, B, flags, kept, g)))
+    res["fixup_ms"] = res["ms"] - res["prepass_product_ms"]
+    res["fixup_bound_share"] = res["fixup_bound_ms"] / max(res["fixup_ms"], 1e-9)
+    res["fixup_bwd_bound_share"] = res["fixup_bound_ms"] / res["fixup_bwd_ms"]
     return res
 
 
@@ -1636,41 +1711,178 @@ def phase_ar1_large_k():
     def elbo(state, gen):
         return state, float(problem.sample(K_AR1, gen, reparam=False).elbo_nograd())
     _profile_step("ar1_large_k", elbo, None, gen, ms)
-    FIXUP_REPORTS["ar1_own"] = _fused_fixup_report(
-        lambda: problem.sample(K_AR1, gen, reparam=False).elbo_nograd())
-    emit({"phase": "ar1_large_k", "fused_fixup_on_own_operators": FIXUP_REPORTS["ar1_own"]})
+    own = _fused_fixup_report(lambda: problem.sample(K_AR1, gen, reparam=False).elbo_nograd(),
+                              "ar1_large_k")
+    FIXUP_REPORTS["ar1_own"] = own
+    if len(own) != 2:
+        fail("ar1_large_k", f"an ELBO made {len(own)} fused launches, not 2")
+    emit({"phase": "ar1_large_k", "fused_fixup_on_own_operators": own,
+          "ok": len(own) == 2 and all(r["ok"] for r in own)})
     return launches
 
 
-def _fused_fixup_report(run):
+def _f64_rows(A, B, g=None, rows=64):
+    """``logsumexp_k(A[b, i, k] + B[b, k, j])`` in float64 and, given the
+    output's gradient ``g``, the gradients (dA, dB) of ``sum(out * g)``
+    (softmax weights over k), by chunks of ``rows`` rows of the K^3 cross
+    sum: the whole cross sum of (1000, 1000, 1000) would take 8 GB."""
+    import torch
+    A, B = A.double(), B.double()
+    nb, M, _ = A.shape
+    out = torch.empty((nb, M, B.shape[2]), dtype=torch.float64, device=A.device)
+    dA, dB = torch.empty_like(A), torch.zeros_like(B)
+    for b in range(nb):
+        for r in range(0, M, rows):
+            x = A[b, r:r + rows, :, None] + B[b]                  # (rows, K, N)
+            lse = torch.logsumexp(x, 1)
+            out[b, r:r + rows] = lse
+            if g is not None:
+                w = torch.exp(x - lse[:, None, :]) * g[b, r:r + rows, None, :].double()
+                dA[b, r:r + rows] = w.sum(2)
+                dB[b] += w.sum(0)
+    return out if g is None else (out, dA, dB)
+
+
+def _hold_to_plain(res, phase, tag, got, want, exact, tols):
+    """``got`` (value and gradients) against the plain version ``want`` at
+    rtol/atol ``tols`` and against float64 ``exact`` within tol (1 +
+    |exact|), recorded in ``res`` under out, dA, dB."""
+    for name, g, w, e, tol in zip(("out", "dA", "dB"), got, want, exact, tols):
+        _check(res, phase, tag, name, g, w, e, tol, tol, False)
+        bad = ((g.double() - e).abs() - tol * e.abs()).max().item()
+        res[name]["f64_max_err_over_rtol"] = bad
+        if bad > tol:
+            res["ok"] = False
+            fail(phase, f"{tag} {name}: against f64 {bad}")
+
+
+def _plain_joints(res, phase, tag, joints, fn):
+    """The plain version's ``fn()`` and its joint entries, which the
+    kernel's ``joints`` must match within 0.1%."""
+    want, joints_p = _joint_counted(fn)
+    res["joint_entries_plain"] = joints_p
+    if joints == 0 or abs(joints - joints_p) > joints_p // 1000:
+        res["ok"] = False
+        fail(phase, f"{tag}: joint entries {joints}, plain {joints_p}")
+    return want
+
+
+def _fused_fixup_report(run, phase):
     """The fused route's launches of one ``run()`` on its own operators:
     each launch's device ms (CUDA graphs of 20), the pre-pass and product
     alone, the fix-up as the difference, its joint entries and its bound
-    (K exponentials a joint entry at PEAK_EXP_PER_S)."""
+    (K exponentials a joint entry at PEAK_EXP_PER_S); each launch's output
+    held to the plain version (rtol/atol 1e-5, joint entries within 0.1%)
+    and float64, its unflagged entries bitwise the product's."""
+    import torch
     from alan_tpu_torch.ops import logmmexp_kernel as lk
     captured, orig = [], lk._launch
 
-    def spy(A, B):
+    def spy(A, B, save=False):
         captured.append((A.clone(), B.clone()))
-        return orig(A, B)
+        return orig(A, B, save)
     lk._launch = spy
     try:
         run()
     finally:
         lk._launch = orig
     out = []
-    for A, B in captured:
+    for n, (A, B) in enumerate(captured):
         nb, M, K = A.shape
         N = B.shape[2]
         bn = lk.tile_n(nb, M, N, lk._sms(A.device))
         ms = graph_ms(lambda: lk._launch(A, B))
         before_ms = graph_ms(lambda: lk._product(*lk._prepass(A, B, bn), nb, M, K, N, bn))
-        joints = _joint_counted(lambda: lk._launch(A, B))[1]
+        (got, flags, _), joints = _joint_counted(lambda: lk._launch(A, B))
         bound_ms = joints * K / PEAK_EXP_PER_S * 1e3
-        out.append({"nb_M_K_N": [nb, M, K, N], "ms": ms, "prepass_product_ms": before_ms,
-                    "fixup_ms": ms - before_ms, "joint_entries": joints,
-                    "fixup_bound_ms": bound_ms,
-                    "fixup_bound_share": bound_ms / max(ms - before_ms, 1e-9)})
+        res = {"nb_M_K_N": [nb, M, K, N], "ms": ms, "prepass_product_ms": before_ms,
+               "fixup_ms": ms - before_ms, "joint_entries": joints, "fixup_bound_ms": bound_ms,
+               "fixup_bound_share": bound_ms / max(ms - before_ms, 1e-9),
+               **_tile_shares(flags), "ok": True}
+        tag = f"own operators, launch {n}"
+        want = _plain_joints(res, phase, tag, joints, lambda: lk.reference_logmmexp(A, B))
+        _hold_to_plain(res, phase, tag, [got], [want], [_f64_rows(A, B)], (1e-5,))
+        product = lk._product(*lk._prepass(A, B, bn), nb, M, K, N, bn)
+        res["unflagged_bitwise"] = torch.equal(got[~flags], product[~flags])
+        if not res["unflagged_bitwise"]:
+            res["ok"] = False
+            fail(phase, f"{tag}: unflagged entries differ from the product's")
+        out.append(res)
+    return out
+
+
+def _tile_shares(flags):
+    """Of the forward fix-up's tiles (FIX_TM x FIX_TN entries), the share
+    that holds a flagged entry and so is walked, and the share of the
+    entries in those tiles that are flagged."""
+    import torch.nn.functional as F
+    from alan_tpu_torch.ops import logmmexp_kernel as lk
+    nb, M, N = flags.shape
+    mt, nt = lk.fixup_tiles(M, N)
+    f = F.pad(flags, (0, nt * lk.FIX_TN - N, 0, mt * lk.FIX_TM - M))
+    per_tile = f.reshape(nb, mt, lk.FIX_TM, nt, lk.FIX_TN).sum((2, 4))
+    visited = per_tile > 0
+    inside = F.pad(flags.new_ones((nb, M, N)), (0, nt * lk.FIX_TN - N, 0, mt * lk.FIX_TM - M))
+    entries = inside.reshape(nb, mt, lk.FIX_TM, nt, lk.FIX_TN).sum((2, 4))
+    return {"tiles_visited_share": visited.float().mean().item(),
+            "flagged_share_in_visited": (per_tile.sum() / entries[visited].sum()).item()}
+
+
+def _fused_fixup_bwd_report(run, phase):
+    """The fused route's backward on its own operators and gradients, as
+    one ``run()`` hands them to it: per launch the forward (keeping state),
+    the backward and both fix-ups alone (``_fixup_times``), the joint
+    entries; value and gradients held to the plain version's autograd
+    (rtol/atol 1e-5 and 1e-4, joint entries within 0.1%) and float64, at
+    the run's own g scaled to a largest entry of 1 and at a unit normal g;
+    two backward calls giving the same bits."""
+    import torch
+    from alan_tpu_torch.ops import logmmexp_kernel as lk
+    captured, orig = [], lk._launch_bwd
+
+    def spy(A, B, flags, kept, g):
+        captured.append((A.clone(), B.clone(), g.clone()))
+        return orig(A, B, flags, kept, g)
+    lk._launch_bwd = spy
+    try:
+        run()
+    finally:
+        lk._launch_bwd = orig
+
+    def plain(A, B, g):
+        a, b = A.clone().requires_grad_(True), B.clone().requires_grad_(True)
+        y = lk.reference_logmmexp(a, b)
+        return (y.detach(), *torch.autograd.grad(y, [a, b], g))
+    out = []
+    for n, (A, B, g) in enumerate(captured):
+        (y, flags, kept), joints = _joint_counted(lambda: lk._launch(A, B, save=True))
+        first = lk._launch_bwd(A, B, flags, kept, g)
+        second = lk._launch_bwd(A, B, flags, kept, g)
+        res = {"nb_M_K_N": [*A.shape, B.shape[2]], "joint_entries": joints,
+               "bwd_bitwise_repeatable": all(torch.equal(x, y)
+                                             for x, y in zip(first, second)), "ok": True}
+        tag = f"own operators and gradients, launch {n}"
+        if not res["bwd_bitwise_repeatable"]:
+            res["ok"] = False
+            fail(phase, f"{tag}: two backward calls differ")
+        # the gradients are linear in g, and marginals()'s g is a posterior's
+        # weights (its gradients ~1e-11, below any atol): held at g scaled to
+        # a largest entry of 1, and at a unit normal g
+        g_max = g.abs().max()
+        res["g_max_abs"] = g_max.item()
+        rand = torch.randn(g.shape, device=g.device,
+                           generator=torch.Generator(device=g.device).manual_seed(n))
+        for name, gg in (("scaled_g", g / g_max), ("normal_g", rand)):
+            res[name] = {"ok": True}
+            got = [y, *lk._launch_bwd(A, B, flags, kept, gg)]
+            want = _plain_joints(res[name], phase, f"{tag}, {name}", joints,
+                                 lambda: plain(A, B, gg))
+            _hold_to_plain(res[name], phase, f"{tag}, {name}", got, want, _f64_rows(A, B, gg),
+                           (1e-5, 1e-4, 1e-4))
+            res[name]["max_abs_dA_dB"] = [w.abs().max().item() for w in want[1:]]
+            res["ok"] &= res[name]["ok"]
+        res.update(_fixup_times(A, B, g, joints))
+        out.append(res)
     return out
 
 
@@ -2387,6 +2599,9 @@ def phase_ar1_ffbs_k1000():
     ms = _host_ms(fn)
     ts = isamp.dump()["ts"].with_dims_front(["T"]).data.double()
     ess = float(s.marginals().min_ess())
+    marginals_ms = _host_ms(lambda: s.marginals())
+    bwd = _fused_fixup_bwd_report(lambda: s.marginals(), phase)
+    FIXUP_REPORTS["ar1_own_bwd"] = bwd
     mean = ts.mean(1).cpu().numpy()
     se = torch.sqrt(ts.var(1) * (1 / ess + 1 / K_AR1)).cpu().numpy()
     kalman = _kalman_post_mean(ar1.data_ts, ar1.T, ar1.A, ar1.init_scale,
@@ -2396,11 +2611,15 @@ def phase_ar1_ffbs_k1000():
            "first_call_ms": first_ms, "peak_mem_gb": peak, "launches": launches,
            "ffbs_routes": routes, "min_ess": ess, "mean": mean.tolist(),
            "kalman_mean": kalman.tolist(), "dev_over_se": (dev / se).tolist(),
+           "marginals_ms": marginals_ms, "fused_fixup_bwd_on_own_operators": bwd,
            "ok": True}
     if not (np.all(dev < 6 * se) and launches["logmmexp"] >= 2
             and routes == [["joint", ["K_ts"]]]):
         res["ok"] = False
         fail(phase, f"dev/se {dev / se}, launches {launches}, routes {routes}")
+    if len(bwd) != 2 or not all(r["ok"] for r in bwd):
+        res["ok"] = False
+        fail(phase, f"marginals(): the fused backward's launches {bwd}")
     emit(res)
     return launches
 
@@ -3478,6 +3697,11 @@ def main():
              posterior_launches={"importance_sample": ar1_post_launches["logmmexp"]},
              graph_launches=graphed("logmmexp"),
              ar1_own_fixups=FIXUP_REPORTS["ar1_own"],
+             ar1_own_bwd_fixups=[{k: r[k] for k in (
+                 "nb_M_K_N", "joint_entries", "saving_ms", "bwd_ms", "fixup_bwd_ms",
+                 "fixup_bound_ms", "fixup_bwd_bound_share", "kept_bytes",
+                 "peak_growth_saving_bytes")}
+                 for r in FIXUP_REPORTS["ar1_own_bwd"]],
              library_ms=None, **fused),
     ]})
     print(card, flush=True)

@@ -245,6 +245,17 @@ def fixup_times(ms, launches):
                                                                           states, plan)])}
 
 
+def variant_text(text, spec):
+    """``spec`` 'LABEL|OLD|NEW' (\\n a newline in OLD and NEW) applied to
+    a kernel source ``text``: -> (LABEL, the text with every OLD replaced
+    by NEW); OLD must occur."""
+    label, old, new = spec.split("|")
+    old, new = old.replace("\\n", "\n"), new.replace("\\n", "\n")
+    if old not in text:
+        raise SystemExit(f"variant {label}: {old!r} is not in the source")
+    return label, text.replace(old, new)
+
+
 def time_variants(src, variants, peaked):
     """The peaked fix-ups of each variant of the source (LABEL|OLD|NEW,
     OLD replaced by NEW), its builds started together; the unchanged
@@ -258,13 +269,10 @@ def time_variants(src, variants, peaked):
     tmp = tempfile.mkdtemp()
     builds = []
     for i, v in enumerate(variants):
-        label, old, new = v.split("|")
-        old, new = old.replace("\\n", "\n"), new.replace("\\n", "\n")
-        if old not in text:
-            raise SystemExit(f"variant {label}: {old!r} is not in the source")
+        label, changed = variant_text(text, v)
         path = os.path.join(tmp, f"smallk_variant{i}.cu")
         with open(path, "w") as fh:
-            fh.write(text.replace(old, new))
+            fh.write(changed)
         builds.append((label, _build._Build(f"smallk_variant{i}", [_build._nvcc()], path,
                                             _build.NVCC_FLAGS + ["-I", os.path.dirname(src)])))
     saved = native._LIBS.get("smallk_logmmexp")

@@ -15,7 +15,12 @@ the card by ``chip_smoke.py`` and ``tests/test_torch_kernels_cuda.py``).
   gradients are bitwise those of the port without the repair (the parent's
   arithmetic), and within the existing tolerances of ``alan_tpu``'s
   ``chain_logmmexp`` and ``logmmexp``.
-* An entry whose joint max is -inf keeps its old value.
+* An entry whose joint max is -inf keeps its old value and passes no
+  gradient: an all -inf row of A and column of B give finite gradients, 0
+  at those operand entries, through both ``reference_logmmexp`` and the
+  plain chain; every other gradient entry is bitwise what the repair
+  before this rule gave where that was a number, and within 1e-4 of
+  float64.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +31,7 @@ from alan_tpu.ops.logmmexp import chain_logmmexp as j_chain
 from alan_tpu.ops.logmmexp import logmmexp as j_logmmexp
 from alan_tpu_torch.ops import logmmexp as tlm
 from alan_tpu_torch.ops import logmmexp_kernel as tlk
+from alan_tpu_torch.ops import smallk_kernel as tsk
 from test_torch_harness import f64_chain, f64_logmmexp, joint_count, joint_shift_off
 
 SCALE = 0.01
@@ -157,3 +163,79 @@ def test_no_finite_joint_max_keeps_the_old_value():
         old = tlk.reference_logmmexp(A, B)
     assert int(joints) == 0 and torch.equal(out, old)
     assert bool(torch.isfinite(out[0, 2]).all())
+
+
+def _repair_passing_old_gradients(out, C, A, B):
+    """``joint_repair`` as it was before kept entries stopped their
+    gradient: a flagged entry with no finite term keeps ``log(c + tiny)``
+    with its autograd."""
+    flag = C.detach() < tlk.JOINT_BELOW
+    if not bool(flag.any()):
+        return out
+    *batch, M, N = out.shape
+    K = A.shape[-1]
+    A3 = A.expand(*batch, M, K).reshape(-1, M, K)
+    B3 = B.expand(*batch, K, N).reshape(-1, K, N)
+    f3, out3 = flag.reshape(-1, M, N), out.reshape(-1, M, N)
+    pairs = f3.flatten(1).any(1).nonzero()[:, 0]
+    vals, finite = tlk._JointValues.apply(A3[pairs], B3[pairs])
+    out3 = out3.index_put((pairs,), torch.where(f3[pairs] & finite, vals, out3[pairs]))
+    return out3.reshape(out.shape)
+
+
+def _no_finite_term_case(route):
+    """(operands, f, exact, objective, W): an all -inf row of A and column
+    of B (for the chain also a whole operator), and weights large enough
+    that the old gradient's ``g / tiny`` summed over a row overflows.  The
+    chain's operators lie near -200, so the ``log(tiny)`` that such an
+    entry keeps outweighs its neighbours at the levels above; its
+    reference is therefore the plain chain in float64, which keeps
+    float32's ``log(tiny)`` too."""
+    rng = np.random.default_rng(9)
+    if route == "product":   # through the fused route's entry point (K >= 128)
+        x = (rng.standard_normal((2, 2, 130, 130)) * 3).astype(np.float32)
+        x[0, 0, 3, :] = -np.inf        # a row of A
+        x[1, 1, :, 4] = -np.inf        # a column of B
+        f = lambda t: tlm.logmmexp(t[:, 0, :6], t[:, 1, :, :7])
+        exact = lambda t: f64_logmmexp(t[:, 0, :6], t[:, 1, :, :7])
+        W = torch.from_numpy(rng.uniform(3, 4, (2, 6, 7)).astype(np.float32))
+        return x, f, exact, _linear, W
+    x = (rng.standard_normal((3, 9, 30, 30)) * 3 - 200).astype(np.float32)
+    x[0, 2, 4, :] = -np.inf            # a row of A at level 1
+    x[1, 5, :, 7] = -np.inf            # a column of B at level 1
+    x[2, 6] = -np.inf                  # a whole operator
+
+    def exact(t):                      # the plain chain in float64
+        for m in tsk.launch_plan(9, 30):
+            t = tsk.reference_segment(t, m)
+        return t[:, 0]
+    W = torch.from_numpy(rng.uniform(3, 4, (3, 30, 30)).astype(np.float32))
+    return x, tlm.chain_logmmexp, exact, _linear, W
+
+
+@pytest.mark.parametrize("route", ["product", "chain"])
+def test_no_finite_term_passes_no_gradient(route, monkeypatch):
+    x, f, exact, objective, W = _no_finite_term_case(route)
+    y, g = _value_and_grad(f, x, W, objective)
+    inf = ~np.isfinite(x)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(g).all())
+    assert bool((g[torch.from_numpy(inf)] == 0).all())
+    if route == "product":
+        # float64 with the -inf entries at -1e30: the outputs with no finite
+        # term (about -1e30 there) weigh nothing, and the gradient is
+        # bitwise the one of an objective that leaves them out
+        x64 = np.where(inf, -1e30, x.astype(np.float64))
+        W64 = W.masked_fill(exact(torch.from_numpy(x64)) < -1e29, 0.0)
+        assert torch.equal(_value_and_grad(f, x, W64, objective)[1], g)
+    else:
+        x64, W64 = x.astype(np.float64), W
+    _, g64 = _value_and_grad(exact, x64, W64.double(), objective)
+    torch.testing.assert_close(g.double(), g64, rtol=1e-4, atol=1e-4)
+    # the repair before this rule: NaN beside the kept entries, and every
+    # entry where it gave a number bitwise the same
+    monkeypatch.setattr(tlk, "joint_repair", _repair_passing_old_gradients)
+    monkeypatch.setattr(tsk, "joint_repair", _repair_passing_old_gradients)
+    y_old, g_old = _value_and_grad(f, x, W, objective)
+    ok = ~torch.isnan(g_old)
+    assert not bool(ok.all())
+    assert torch.equal(y_old, y) and torch.equal(g_old[ok], g[ok])

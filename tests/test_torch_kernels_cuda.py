@@ -35,6 +35,12 @@ and no JAX it runs without the suite's conftest:
   kernel with its fix-ups at K = 128 against the repaired plain versions
   on the card (rtol/atol 1e-5 values, rtol/atol 1e-4 gradients) and a
   float64 log-space evaluation; the same entries repaired on both sides;
+* the fused route's joint-shift fix-ups (forward and backward) on peaked
+  operators, K = 128, 257 and 1000, M and N off the tiles, nb = 1 to 6, and
+  an all -inf row, column and operand: against the plain version and
+  float64, the joint entries counted alike, unflagged entries bitwise the
+  product's, the kept state and the backward against their plain versions,
+  the backward bitwise the same in two calls;
 * the fused log-matmul kernel against ``reference_logmmexp``: both levels
   of the AR(1) chain at K = 1000 ((2, 1000, 1000) and batch 1), a ragged
   shape, -inf rows and sums of products in [e^-80, e^-78], rtol/atol 1e-5;
@@ -454,8 +460,9 @@ def test_smallk_fixups_match_plain_version(card, kind):
     values rtol/atol 1e-5, gradients 1e-4, the joint entries counted alike.
     Unflagged segments are bitwise the fast kernels' (a launch without
     flags), and the backward given the forward's flags is bitwise the one
-    that finds them itself.  The kernels' gradients are finite, and 0 for an operand entry
-    that is -inf (the plain version's autograd gives NaN there)."""
+    that finds them itself.  The kernels' gradients are finite, 0 for an
+    operand entry that is -inf, and equal to the plain version's at every
+    entry (an entry with no finite term passes no gradient in both)."""
     from alan_tpu_torch.ops.native import load, ptr, stream
     x, m = _fixup_operands(kind, np.random.default_rng(50), card)
     x = x.contiguous()
@@ -473,13 +480,8 @@ def test_smallk_fixups_match_plain_version(card, kind):
     assert n_kernel == n_plain > 0
     torch.testing.assert_close(got.detach(), want.detach(), rtol=1e-5, atol=1e-5)
     assert torch.isfinite(dx).all()
-    fin = torch.isfinite(x)
-    assert (dx[~fin] == 0).all()
-    if kind == "no_finite_term":
-        # beside an entry whose c is 0 the plain version's autograd takes
-        # g / FLT_MIN times 0, and gives NaN where that overflows
-        fin &= ~torch.isnan(dwant)
-    torch.testing.assert_close(dx[fin], dwant[fin], rtol=1e-4, atol=1e-4)
+    assert (dx[~torch.isfinite(x)] == 0).all()
+    torch.testing.assert_close(dx, dwant, rtol=1e-4, atol=1e-4)
     # the backward that finds its flags itself: bitwise the one given the
     # forward's (which skips their segments)
     out2, flags2 = tsk.fast_fwd(x, m)
@@ -596,6 +598,97 @@ def test_fused_prepass_is_its_plain_version(card, shape):
         want = tlk.reference_prepass(A, B, bn)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+# ---- the fused log-matmul's joint-shift fix-ups ------------------------------------
+
+def _fused_fixup_operands(nb, M, K, N, kind, card):
+    """Peaked operators (``_peaked``'s first two of each of nb chains, cut
+    to M rows of A and N columns of B): flagged and unflagged entries mixed;
+    ``"inf"`` adds an all -inf row of A (batch 0), column of B (batch 1)
+    and whole A (batch 2)."""
+    AB = _peaked(np.random.default_rng(nb * K + M), (nb,), K, 2, card)
+    A, B = AB[:, 0, :M].contiguous(), AB[:, 1, :, :N].contiguous()
+    if kind == "inf":
+        A[0, 3] = -np.inf
+        B[1, :, 5] = -np.inf
+        A[2] = -np.inf
+    return A, B
+
+
+@pytest.mark.parametrize("nb,M,K,N,kind", [(1, 128, 128, 128, "peaked"),
+                                           (6, 100, 128, 77, "peaked"),
+                                           (2, 130, 257, 65, "peaked"),
+                                           (3, 200, 1000, 150, "peaked"),
+                                           (3, 96, 257, 70, "inf")])
+def test_fused_fixups_match_plain_version(card, nb, M, K, N, kind):
+    """The fused route's forward and backward fix-ups against the plain
+    version (values rtol/atol 1e-5, the gradients of a random linear
+    function 1e-4) and, without -inf, float64; the entries that took the
+    joint shift within 0.1% of the plain version's; unflagged entries
+    bitwise the product's; what the forward keeps against its plain
+    version (masks and t* bitwise, the reference terms bitwise, -log2 of
+    the sum to 1e-5); the backward fix-up against its plain version from
+    the kept records, and bitwise the same in two calls."""
+    A, B = _fused_fixup_operands(nb, M, K, N, kind, card)
+    W = torch.randn((nb, M, N), device=card, generator=torch.Generator(card).manual_seed(5))
+
+    def run(f, A, B):
+        a, b = A.clone().requires_grad_(True), B.clone().requires_grad_(True)
+        y = f(a, b)
+        return (y.detach(), *torch.autograd.grad((y * W.to(y.dtype)).sum(), [a, b]))
+    launches = (tlk.LAUNCHES, tlk.BWD_LAUNCHES)
+    got, n_kernel = _joints(lambda: run(tlk.logmmexp_fused, A, B))
+    assert (tlk.LAUNCHES - launches[0], tlk.BWD_LAUNCHES - launches[1]) == (1, 1)
+    want, n_plain = _joints(lambda: run(tlk.reference_logmmexp, A, B))
+    assert n_kernel > 0 and abs(n_kernel - n_plain) <= n_plain // 1000
+    for g, w, tol in zip(got, want, (1e-5, 1e-4, 1e-4)):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+    if kind != "inf":
+        exact = run(_f64_logmmexp, A, B)
+        for g, e, tol in zip(got, exact, (1e-5, 1e-4, 1e-4)):
+            torch.testing.assert_close(g.double(), e.double(), rtol=tol, atol=tol)
+    else:
+        assert (got[1][0, 3] == 0).all() and (got[2][1, :, 5] == 0).all()
+        assert (got[1][2] == 0).all()
+    out, flags, kept = tlk._launch(A, B, save=True)
+    bn = tlk.tile_n(nb, M, N, tlk._sms(A.device))
+    product = tlk._product(*tlk._prepass(A, B, bn), nb, M, K, N, bn)
+    assert torch.equal(out[~flags], product[~flags]) and torch.equal(out, got[0])
+    rec, recT, rows, cols = kept
+    want_rows, want_cols = tlk.fixup_masks(flags)
+    assert torch.equal(rows, want_rows.flatten()) and torch.equal(cols, want_cols.flatten())
+    assert torch.equal(recT.transpose(1, 2)[flags], rec[flags])
+    want_rec = tlk.reference_fixup_state(A, B, flags)
+    for c in (0, 1, 3):
+        assert torch.equal(rec[..., c][flags], want_rec[..., c][flags])
+    torch.testing.assert_close(rec[..., 2][flags], want_rec[..., 2][flags], rtol=1e-5, atol=1e-5)
+    g = W.contiguous()
+    dA, dB = torch.zeros_like(A), torch.zeros_like(B)
+    tlk._fixup_bwd(A, B, g, kept, dA, dB)
+    want_dA, want_dB = tlk.reference_fixup_bwd(A, B, g, rec, flags)
+    torch.testing.assert_close(dA, want_dA, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(dB, want_dB, rtol=1e-4, atol=1e-5)
+    first = tlk._launch_bwd(A, B, flags, kept, g)
+    second = tlk._launch_bwd(A, B, flags, kept, g)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_fused_fixup_kept_sizes_match_the_host(card):
+    """The kept masks' words, as the C interface counts them, against the
+    wrapper's; the forward without a gradient keeps nothing, and the
+    backward refuses to run without what the forward kept."""
+    lib = tlk._lib()
+    for nb, M, N in ((1, 1, 1), (2, 1000, 1000), (3, 130, 77), (6, 64, 32), (1, 65, 33)):
+        for cols in (0, 1):
+            assert lib.logmmexp_fixup_mask_words(nb, M, N, cols) == \
+                tlk.fixup_mask_words(nb, M, N, bool(cols))
+    A, B = _fused_fixup_operands(1, 128, 128, 128, "peaked", card)
+    out, flags, kept = tlk._launch(A, B)
+    assert kept is None
+    with pytest.raises(ValueError, match="kept"):
+        tlk._launch_bwd(A, B, flags, None, torch.ones_like(out))
 
 
 # ---- the captured loop ----------------------------------------------------------

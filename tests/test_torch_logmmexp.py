@@ -400,3 +400,63 @@ def test_level_layout_and_remainder():
     want = np.asarray(j_logmmexp(jnp.asarray(x[:, 2]), jnp.asarray(x[:, 3]),
                                  allow_pallas=False))
     np.testing.assert_allclose(out[:, 1], want, rtol=1e-5, atol=1e-5)
+
+
+# ---- what the fused route's fix-ups keep for the backward --------------------------
+
+@pytest.mark.parametrize("nb,M,N", [(2, 70, 45), (1, 64, 32), (3, 1, 97)])
+def test_fused_fixup_masks_pack_the_flags(nb, M, N):
+    """The kept masks against the flags bit by bit: by row, bit c of word
+    [b, i, J] is entry (b, i, 32 J + c); by column, bit r of word [b, j, I]
+    is entry (b, 64 I + r, j); as many words as ``fixup_mask_words`` says,
+    ragged edges included."""
+    flags = torch.from_numpy(np.random.default_rng(nb * M + N).random((nb, M, N)) < 0.3)
+    rows, cols = tlk.fixup_masks(flags)
+    mt, nt = tlk.fixup_tiles(M, N)
+    assert rows.shape == (nb, M, nt) and cols.shape == (nb, N, mt)
+    assert rows.numel() == tlk.fixup_mask_words(nb, M, N, False)
+    assert cols.numel() == tlk.fixup_mask_words(nb, M, N, True)
+    f = flags.numpy()
+    for b in range(nb):
+        for i in range(M):
+            for J in range(nt):
+                want = sum(1 << c for c in range(32) if 32 * J + c < N and f[b, i, 32 * J + c])
+                assert int(rows[b, i, J]) & 0xFFFFFFFF == want
+        for j in range(N):
+            for I in range(mt):
+                want = sum(1 << r for r in range(64) if 64 * I + r < M and f[b, 64 * I + r, j])
+                assert int(cols[b, j, I]) & 0xFFFFFFFFFFFFFFFF == want
+
+
+def test_plain_fixup_backward_from_kept_state_matches_joint_values():
+    """The records the forward fix-up keeps (its plain version) hold each
+    flagged entry's first argmax and reference terms, and the backward
+    built from them alone gives the gradients of ``_JointValues``' backward
+    for those entries (rtol 1e-5), with 0 from an entry whose terms are all
+    -inf; the other entries' records stay 0."""
+    rng = np.random.default_rng(21)
+    x = rng.normal(0, 1, (2, 3, 40))
+    d = (x[:, 1, None, :] - x[:, 0, :, None]) / 0.05
+    A = torch.from_numpy((-0.5 * d * d).astype(np.float32))                 # (2, 40, 40)
+    B = torch.from_numpy((-0.5 * ((x[:, 2, None, :] - x[:, 1, :, None]) / 0.05) ** 2)
+                         .astype(np.float32))[:, :, :23]                      # (2, 40, 23)
+    A[1, 5] = -np.inf
+    a_max, b_max = tlk._shifts(A, B)
+    flags = torch.matmul(torch.exp(A - a_max), torch.exp(B - b_max)) < tlk.JOINT_BELOW
+    assert 0 < int(flags.sum()) < flags.numel()
+    rec = tlk.reference_fixup_state(A, B, flags)
+    t = rec[..., 3].contiguous().view(torch.int32).long()
+    m, want_t = (A[:, :, :, None] + B[:, None, :, :]).max(2)
+    fin = torch.isfinite(m) & flags
+    assert torch.equal(t[fin], want_t[fin]) and bool((rec[~flags] == 0).all())
+    assert torch.equal(rec[..., 0][fin], A.gather(2, want_t)[fin])
+    assert bool((rec[..., 2][flags & ~torch.isfinite(m)] == -np.inf).all())
+    g = torch.from_numpy(rng.standard_normal((2, 40, 23)).astype(np.float32))
+    dA, dB = tlk.reference_fixup_bwd(A, B, g, rec, flags)
+    a, b = A.clone().requires_grad_(True), B.clone().requires_grad_(True)
+    vals, finite = tlk._JointValues.apply(a, b)
+    want_dA, want_dB = torch.autograd.grad((vals * torch.where(flags & finite, g, 0.0)).sum(),
+                                           [a, b])
+    assert bool(torch.isfinite(dA).all()) and bool((dA[1, 5] == 0).all())
+    torch.testing.assert_close(dA, want_dA, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dB, want_dB, rtol=1e-5, atol=1e-6)
