@@ -30,6 +30,14 @@ backward sampling) and the predictive log-likelihood of held-out data
 (``ImportanceSample.extend(...).predictive_ll(...)``, a timeseries rolled
 forward from its last state; ``predict.importance_sample_fn`` and
 ``predict.predictive_ll_fn`` run the whole pipeline).
+
+Every evaluation takes a computation strategy (``no_checkpoint``,
+``checkpoint``, ``Split``; ``alan_tpu``'s defaults).  ``checkpointing``
+saves and resumes a training state bit-exactly, in ``alan_tpu``'s file
+layout.  The gold samplers ``mcmc.run_hmc``, ``nuts.run_nuts`` and
+``smc.run_smc`` sample the P program's posterior (each HMC and NUTS
+iteration a CUDA graph on the card), and ``diagnostics`` reads their
+draws.
 """
 
 from .dims import DT, dt
@@ -45,7 +53,7 @@ from .importance import ImportanceSample, ExtendedImportanceSample
 from .moments import (RawMoment, CompoundMoment, mean, mean2, mean_log, mean_log1m,
                       mean_recip, mean_xxT, var, cov_x, var_from_raw_moment,
                       std_from_raw_moment)
-from .split import no_checkpoint
+from .split import Split, checkpoint, no_checkpoint
 from . import train, convert, predict
 
 # the user-facing constructor of every family (Normal, Beta, ...)
@@ -59,7 +67,7 @@ __all__ = [
     "samplers", "Sample", "SampleNonMP", "Marginals", "ImportanceSample",
     "ExtendedImportanceSample", "RawMoment", "CompoundMoment", "mean",
     "mean2", "mean_log", "mean_log1m", "mean_recip", "mean_xxT", "var",
-    "cov_x", "var_from_raw_moment", "std_from_raw_moment", "no_checkpoint",
+    "cov_x", "var_from_raw_moment", "std_from_raw_moment", "Split", "checkpoint", "no_checkpoint",
     "train", "convert", "predict",
     *list(_dc.keys()),
 ]

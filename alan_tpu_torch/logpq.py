@@ -1,11 +1,19 @@
 """The log P/Q evaluator (counterpart of ``alan_tpu/logpq.py`` without its
-chunked-scan, rematerialisation and mesh branches).
+mesh branches).
 
 A recursive walk over the (P, Q) plate trees gathers per-group log-factors
 ``log P - reduce_logQ(log Q) - log K`` (each carrying its K-dims and plate
 dims), contracts the K-dims with the planned log-space engine
 (``reduce_ks.py``), sums plates, and chains timeseries factors over their
 plate's dim T with log-space matmuls (``ops/logmmexp.py``).
+
+The computation strategy (``split.py``) chunks one plate: the chunks run
+one after another, a Python loop (``alan_tpu`` runs equal chunks through
+``lax.scan`` to keep XLA's program small; a CUDA graph unrolls the loop
+anyway), each under ``torch.utils.checkpoint`` where a gradient is wanted,
+so that the backward pass holds one chunk at a time; ``checkpoint`` runs
+the outermost plate body under it and the plates inside plainly, so that
+the backward pass runs the forward once more, not once a level.
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ import os
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from .dims import DT, as_dt, bind, sum_dims
 from .ir.plate import Plate, update_scope
@@ -22,6 +31,7 @@ from .ir.data import Data
 from .ir.timeseries import Timeseries
 from .ops.logmmexp import chain_logmmexp
 from .reduce_ks import factor_components, reduce_Ks
+from .split import checkpoint, no_checkpoint
 from .utils import tree_values
 
 
@@ -30,7 +40,14 @@ def logPQ_plate(name: Optional[str], P: Plate, Q: Plate, sample: dict,
                 scope: dict, active_platedims: list, all_platedims: dict,
                 groupvarname2Kdim: dict, varname2groupvarname: dict,
                 sampler, computation_strategy):
-    """Evaluate a plate (one chunk: the ported strategy does not split)."""
+    """Evaluate a plate, in the chunks of a ``Split`` along it (each chunk's
+    plate sum added to the running accumulator), each chunk under
+    ``torch.utils.checkpoint`` where a gradient is wanted and the plate is
+    split or the strategy is ``checkpoint`` (whose plates inside then run
+    plainly): the tensors a chunk saves for
+    the backward pass (the fused log-matmul's kept state, 20.5 GB a region
+    of covid at K = 300) would otherwise all live until the backward, and
+    the split would bound nothing."""
     siedas = computation_strategy.split_args(
         name=name, sample=sample, inputs_params=inputs_params,
         extra_log_factors=extra_log_factors, data=data,
@@ -42,32 +59,73 @@ def logPQ_plate(name: Optional[str], P: Plate, Q: Plate, sample: dict,
         raise ValueError(
             f"You can't Split along plate '{name}' because it contains a "
             f"Timeseries: splitting the T dimension is unsupported")
-    assert len(siedas) == 1
-    s = siedas[0]
     assert isinstance(P, Plate) and isinstance(Q, Plate)
 
+    def body(sample, inputs_params, data, extra_log_factors, all_platedims,
+             prev_lpq):
+        return _plate_body(
+            name=name, P=P, Q=Q, sample=sample, inputs_params=inputs_params,
+            data=data, extra_log_factors=extra_log_factors, scope=scope,
+            active_platedims=active_platedims, all_platedims=all_platedims,
+            groupvarname2Kdim=groupvarname2Kdim,
+            varname2groupvarname=varname2groupvarname, sampler=sampler,
+            computation_strategy=computation_strategy, prev_lpq=prev_lpq)
+
+    remat = ((computation_strategy is checkpoint or len(siedas) > 1)
+             and torch.is_grad_enabled())
+    if remat and computation_strategy is checkpoint:
+        # The plates inside run plainly: a checkpoint nested in a checkpoint
+        # would run the inner forward once more in the backward per level.
+        computation_strategy = no_checkpoint
+    lpq = None
+    for s in siedas:
+        args = (s["sample"], s["inputs_params"], s["data"],
+                s["extra_log_factors"], s["all_platedims"], lpq)
+        if remat:
+            # The forward keeps nothing for the backward pass, which runs the
+            # body again.  A plate body draws no random numbers, so there is
+            # no RNG state to replay: preserve_rng_state=False, which also
+            # keeps the checkpoint from reading and stashing the generators'
+            # states, a host read that a CUDA-graph capture cannot record.
+            lpq = torch.utils.checkpoint.checkpoint(
+                body, *args, use_reentrant=False, preserve_rng_state=False)
+        else:
+            lpq = body(*args)
+    return lpq
+
+
+def _plate_body(*, name, P, Q, sample, inputs_params, data, extra_log_factors,
+                scope, active_platedims, all_platedims, groupvarname2Kdim,
+                varname2groupvarname, sampler, computation_strategy, prev_lpq):
+    """One chunk of a plate: its factors contracted over their K-dims and
+    summed over the plate, plus ``prev_lpq``, the sum of the chunks
+    before it."""
     if name is not None:
         active_platedims = [*active_platedims, name]
 
-    scope = update_scope(scope, s["inputs_params"])
-    scope = update_scope(scope, s["sample"])
+    scope = update_scope(scope, inputs_params)
+    scope = update_scope(scope, sample)
 
     lps, all_Ks, K_currs, K_inits = lp_getter(
-        P=P, Q=Q, sample=s["sample"], inputs_params=s["inputs_params"],
-        data=s["data"], extra_log_factors=s["extra_log_factors"], scope=scope,
-        active_platedims=active_platedims, all_platedims=s["all_platedims"],
+        P=P, Q=Q, sample=sample, inputs_params=inputs_params, data=data,
+        extra_log_factors=extra_log_factors, scope=scope,
+        active_platedims=active_platedims, all_platedims=all_platedims,
         groupvarname2Kdim=groupvarname2Kdim,
         varname2groupvarname=varname2groupvarname, sampler=sampler,
         computation_strategy=computation_strategy)
     assert len(K_currs) == len(K_inits)
 
     if name is not None and K_inits:
+        assert prev_lpq is None
         return _reduce_timeseries_plate(lps, all_Ks, K_currs, K_inits, name,
-                                        s["all_platedims"])
+                                        all_platedims)
 
     lp = reduce_Ks(lps, all_Ks)
     if name is not None:
         lp = sum_dims(lp, (name,), ignore_extra_dims=True)
+        if prev_lpq is not None:
+            assert set(lp.dims) == set(prev_lpq.dims)
+            lp = lp + prev_lpq
     return lp
 
 

@@ -7,9 +7,12 @@ marginal weights of the particles and importance samples.
 reference's own torch idiom: ``(-sample.elbo_vi()).backward()`` gives the
 VI gradient of every opt param.  ``elbo_rws()`` takes the detached draws,
 so its gradient reaches the opt params through the log-densities alone.
-The computation strategy defaults to ``no_checkpoint`` everywhere:
-``alan_tpu``'s ``checkpoint`` (rematerialisation in the backward pass) is
-not ported yet, and it changes no value.
+The computation strategy (``split.py``) defaults to ``alan_tpu``'s:
+``checkpoint`` for ``elbo_vi``, ``elbo_rws``, ``elbo_nograd``,
+``marginals`` and ``importance_sample`` (each plate body recomputed in the
+backward pass instead of kept), ``no_checkpoint`` for the moments; a
+``Split`` chunks one plate.  No strategy changes a value beyond the order
+of the sums.
 
 Posterior moments are gradients of the ELBO with respect to injected
 zero-valued log-factors ``J`` (the source-term trick, ``alan_tpu``'s
@@ -30,7 +33,7 @@ from .dims import DT, as_dt, dims_of, sum_pos, detach, dt_index
 from .ir.plate import tensordict2tree, flatten_tree, empty_tree
 from .logpq import logPQ_plate
 from .sample_logpq import logPQ_sample
-from .split import no_checkpoint
+from .split import checkpoint, no_checkpoint
 from .moments import RawMoment, dt_moments_mixin
 from .marginals import Marginals
 from .importance import ImportanceSample
@@ -84,7 +87,7 @@ class Sample:
         assert dims_of(lp) == ()
         return lp.data if isinstance(lp, DT) else lp
 
-    def elbo_vi(self, computation_strategy=no_checkpoint):
+    def elbo_vi(self, computation_strategy=checkpoint):
         """The ELBO through the reparameterised draws."""
         if not self.reparam:
             raise Exception(
@@ -92,11 +95,11 @@ class Sample:
                 "sample with problem.sample(K, generator, reparam=True)")
         return self._elbo(self.reparam_sample, None, computation_strategy)
 
-    def elbo_rws(self, computation_strategy=no_checkpoint):
+    def elbo_rws(self, computation_strategy=checkpoint):
         """The ELBO of the detached draws."""
         return self._elbo(self.detached_sample, None, computation_strategy)
 
-    def elbo_nograd(self, computation_strategy=no_checkpoint):
+    def elbo_nograd(self, computation_strategy=checkpoint):
         with torch.no_grad():
             return self._elbo(self.detached_sample, None, computation_strategy)
 
@@ -190,7 +193,7 @@ class Sample:
             return v.dim_size(self.groupvarname2Kdim[v2g[vn]])
         raise Exception("no latents")
 
-    def marginals(self, joints=(), computation_strategy=no_checkpoint):
+    def marginals(self, joints=(), computation_strategy=checkpoint):
         """The marginal posterior weights of every latent's particles (and
         of the joints asked for, tuples of groupvarnames): one forward and
         one backward pass."""
@@ -235,7 +238,7 @@ class Sample:
         return {Kdim2gvn[k]: v for k, v in indices.items()}, N_dim
 
     def importance_sample(self, N: int, generator=None,
-                          computation_strategy=no_checkpoint, noise=None):
+                          computation_strategy=checkpoint, noise=None):
         """N joint posterior samples of every latent, drawn with
         ``generator`` or with the injected Gumbel ``noise``."""
         indices, N_dim = self._importance_sample_idxs(N, computation_strategy,

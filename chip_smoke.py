@@ -261,6 +261,66 @@ without its final line:
                 replay, every day's log_infected weights summing to 1 after
                 its steps.
 
+32. strategies_covid_k30 -- full-size covid QEM at K=30 (phase 36's
+                recipe counts, Q centred on their latents) under
+                no_checkpoint, checkpoint, Split("nRs", 23) (4 equal
+                chunks) and Split("nRs", 40) (40, 40 and 12): 3 eager steps
+                and the same 3 captured (bitwise the eager loop, the
+                launches of a replay those of an eager step); one step's
+                ELBO within rtol 1e-5 / atol 1e-6 of no_checkpoint's
+                (``tests/test_problem_vs_itself.py:189``), its new state
+                within 1e-4, the marginal weights of one particle tree
+                within ``COVID_WEIGHTS_TOL`` (2e-2; float32's order effect
+                is ~2e-3), which reversed chunks must meet and a planted
+                off-by-one chunk must miss, the chain kernels launched in
+                every chunk; launches a step, busy ms, idle share and peak
+                GB of each;
+33. strategies_grouped_k1000 -- grouped MovieLens K=1000, QEM and VI,
+                under no_checkpoint, checkpoint and Split("plate_1", 100):
+                phase 32's gates, the weights within 1e-4 (VI by its ELBO's
+                gradients); each chunk of 100 users stays on the lazy
+                route, so the lowrank kernels launch in every chunk (by
+                mode);
+34. covid_k300_split -- the covid K sweep's K = 300 point
+                (``scripts/covid_k_sweep.py:170-180``): 16 x 25 (20 training
+                days, the counts of ``scripts/moments_vs_hmc_covid.py:51-62``),
+                Split("nRs", 2), 5 QEM steps and ``marginals()``: the fused
+                kernel and its fix-ups in every chunk, the joint entries and
+                peak GB; unsplit where it fits (else its out-of-memory
+                reported), one step of Split("nRs", 1) and of both with
+                their chunks reversed, each first ELBO within 1e-5 of the
+                first run's (the state after it reported, and the order's
+                share of it); one step of each chunking from Q centred on
+                the recipe's latents, the state within 1e-4; one region's
+                chain and gradient at a batch of 1 and of 2, bitwise or not;
+35. gold_analytic -- ``tests/test_mcmc_smc.py``'s five oracles at their
+                draw counts and gates: HMC, NUTS and SMC's evidence on the
+                linear Gaussian, HMC on the Dirichlet-Categorical and on an
+                LKJ correlation;
+36. gold_covid -- covid at full size (92 x 109, D = 10,318) with the
+                recipe's counts, started at the recipe's own latents:
+                NUTS (4 chains, max_depth 8) and HMC in float64, each
+                iteration captured (one leapfrog's energy error in float32
+                and float64 reported: float32 rounds by tens of nats);
+                gates: every draw finite, the log posterior and its
+                gradient at 4 thetas within 1e-5 and 1e-4 of the host's
+                float64 evaluation, a depth-4 NUTS draw within 1e-4 of the
+                host port's from the same state and noise, 5 captured draws
+                bitwise 5 eager;
+                reported: ms a draw and gradient evaluations a second
+                (captured and eager), acceptance, step size, split-R-hat and
+                bulk ESS, z-scores of MP QEM at K=30 against NUTS; at 16 x 25
+                NUTS and SMC (2048 particles, its host syncs) and SMC's
+                z-scores against NUTS (``scripts/covid_k_sweep.py:126-148``),
+                each labelled unconverged where NUTS's R-hat exceeds 1.1;
+37. checkpoint_resume -- covid QEM K=30 and grouped MovieLens VI K=1000
+                (Adam's state) under ``scan_steps``: 10 steps bitwise 5, a
+                save (state and generator), a load into a fresh problem and
+                5 more; the file loaded on the host and back, bitwise.
+
+``--only PHASE,...`` runs the build and the named phases of 32-37 alone (a
+rehearsal: no kernels line, no final line).
+
 Each path (phases 3, 5, 7, 9, 11, 13, 28, each model of 31, each call of
 14, 16, 17 and 19, and each family of 27) is driven with the launch counters set to 0 just
 before it and read just after, and each but 13's, 19's and 27's is
@@ -268,9 +328,10 @@ profiled over two more steps or calls.  Then the ``kernels`` line (the VI
 path's lowrank launches by backward mode, the RWS and corr_Q paths' chain
 launches, the posterior calls' lowrank, chain and fused launches beside
 the QEM paths', the factored families' lowrank launches and ms,
-covid_reparam's chain launches (``canonical_launches``), and
+covid_reparam's chain launches (``canonical_launches``),
 ``graph_launches``: each captured path's launches per replay and its
-replays), the card's name and power limit as nvidia-smi prints them, and
+replays, and ``strategy_launches``: phases 32-34's launches a step under
+each strategy), the card's name and power limit as nvidia-smi prints them, and
 ``{"ok": true, "device": {...}}`` last.
 """
 import json
@@ -3551,6 +3612,889 @@ def phase_canonical_k30():
     return chain
 
 
+# ---- phases 32-37: computation strategies, the gold samplers, resume -------------
+
+#: eager steps and captured replays a strategy is driven over
+STRATEGY_STEPS = 3
+#: the gate of a strategy against no_checkpoint: the ELBO's bound in
+#: ``tests/test_problem_vs_itself.py:189``, the state's and the marginals'
+STRATEGY_ELBO_TOL, STRATEGY_TOL = dict(rtol=1e-5, atol=1e-6), dict(rtol=1e-4, atol=1e-4)
+#: full-size covid's marginal weights against no_checkpoint's, largest
+#: difference: above the plate sum's order effect (2.4e-3 in float32, a
+#: Split's and reversed chunks') and below a planted chunking fault's
+#: (``_control_splits``); both read in every run
+COVID_WEIGHTS_TOL = 2e-2
+#: the covid K sweep's K = 300 point (``scripts/covid_k_sweep.py:170-180``)
+K300_SHAPE, K300, K300_STEPS = (16, 25), 300, 5
+#: the gold runs on full-size covid: NUTS (warmup, draws, chains, depth),
+#: HMC (warmup, draws, leapfrog steps), SMC at 16 x 25, QEM at K = 30
+GOLD_NUTS = (150, 100, 4, 8)
+GOLD_HMC = (100, 100, 16)
+#: the step sizes one leapfrog's energy error is read at (``_energy_errors``)
+ENERGY_EPS = (0.1, 1e-2, 1e-3, 1e-4)
+GOLD_SMC_PARTICLES, GOLD_SMC_SHAPE = 2048, (16, 25)
+GOLD_SMALL_NUTS = (50, 50, 4, 8)
+GOLD_QEM_ITERS = 150
+
+
+def _control_splits(platename, split_size):
+    """Two Splits the strategies' weights gate is read against: the same
+    chunks added in reverse order (the plate sum's order alone), and a
+    planted fault, the last chunk's bounds one row low (one row evaluated
+    twice, the last never), which the gate must refuse."""
+    from alan_tpu_torch import Split
+
+    class Reversed(Split):
+        def _split_bounds(self, size):
+            return super()._split_bounds(size)[::-1]
+
+    class OffByOne(Split):
+        def _split_bounds(self, size):
+            bounds = super()._split_bounds(size)
+            (a, b) = bounds[-1]
+            return bounds[:-1] + [(a - 1, b - 1)]
+    return Reversed(platename, split_size), OffByOne(platename, split_size)
+
+
+def _strategy_runs(phase, problem, make_step, check, strategies, kernels, info,
+                   weights_tol=None, controls=()):
+    """Each strategy's step from ``make_step(cs) -> (step, state0)``:
+    ``STRATEGY_STEPS`` eager steps (launches per step, host ms, peak GB), the
+    same steps under ``scan_steps`` (launches per replay, peak GB; bitwise
+    the eager loop) and a profile of two eager steps (busy ms, idle share).
+    ``check(cs) -> (elbo, tensors, weights)`` gives one ELBO from fixed draws,
+    what follows from it (a QEM step's new state, a VI ELBO's gradients)
+    and the marginal weights of one particle tree; every strategy is held
+    to the first (no_checkpoint): the ELBO within ``STRATEGY_ELBO_TOL``, the
+    tensors within ``STRATEGY_TOL``, the weights within ``STRATEGY_TOL``
+    or, with ``weights_tol``, by their largest difference.  Each kernel of
+    ``kernels`` launches at least once a chunk.  ``controls`` ((name,
+    strategy, held) a piece) are read against ``weights_tol`` after the
+    strategies: a held one within it, a planted fault beyond it.  The
+    3-step ELBOs and states against no_checkpoint's are reported.  Returns
+    ({strategy: launches per step}, all held)."""
+    import torch
+    from alan_tpu_torch import train
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+    base, out, ok = None, {}, True
+
+    def weights_diff(weights, b_weights):
+        return max((weights[k].with_dims_front(list(v.dims)).data - v.data).abs().max().item()
+                   for k, v in b_weights.items())
+
+    for name, cs in strategies:
+        step, state0 = make_step(cs)
+        step(state0, gen(0))                               # warm-up
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        st_e, el_e = train._eager(step, STRATEGY_STEPS, state0, gen(5))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / STRATEGY_STEPS * 1e3
+        per_step = {k: v // STRATEGY_STEPS for k, v in read_counts().items() if v}
+        peak_eager = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        with _CountedCaptures() as cap:
+            st_g, el_g = train.scan_steps(step, STRATEGY_STEPS)(state0, gen(5))
+        torch.cuda.synchronize()
+        peak_graph = torch.cuda.max_memory_allocated() / 1e9
+        replay = {k: v for k, v in (cap.records[0] if cap.records else {}).items() if v}
+        bitwise = bool(torch.equal(el_g, el_e)) and all(
+            torch.equal(a, b) for a, b in zip(train._flatten(st_g)[0], train._flatten(st_e)[0]))
+        prof = _profile_step(f"{phase}_{name}", step, st_e, gen(9), ms)
+        elbo, tensors, weights = check(cs)
+        chunks = (len(cs._split_bounds(problem.all_platedims[cs.platename]))
+                  if hasattr(cs, "platename") else 1)
+        res = {"phase": phase, "strategy": name, **info, "chunks": chunks, "ms_per_step": ms,
+               "elbos": el_e.tolist(), "launches_per_step": per_step,
+               "launches_per_replay": replay, "bitwise_captured_eager": bitwise,
+               "device_busy_ms_per_step": prof["device_busy_ms"] / prof["steps"],
+               "device_idle_share_unprofiled": prof["device_idle_share_unprofiled"],
+               "peak_mem_gb_eager": peak_eager, "peak_mem_gb_captured": peak_graph,
+               "resident_gb_before": resident}
+        faults = []
+        if not (bitwise and _finite(el_e.tolist())):
+            faults.append("captured loop not bitwise its eager loop, or a non-finite ELBO")
+        if replay != per_step:
+            faults.append(f"launches per replay {replay} != per eager step {per_step}")
+        short = [k for k in kernels if per_step.get(k, 0) < chunks]
+        if short:
+            faults.append(f"{short} launched fewer times than the {chunks} chunks")
+        if base is None:
+            base = (elbo, tensors, weights, el_e, st_e)
+        else:
+            b_elbo, b_tensors, b_weights, b_el, b_st = base
+            res["elbo_rel_diff"] = _rel_diff(elbo, b_elbo)
+            res["max_abs_diff"] = max(((t - u).abs().max().item() for t, u in
+                                       zip(tensors, b_tensors) if t.numel()), default=0.0)
+            res["bitwise_no_checkpoint"] = bool(torch.equal(elbo, b_elbo)) and all(
+                torch.equal(t, u) for t, u in zip(tensors, b_tensors))
+            w = {k: weights[k].with_dims_front(list(v.dims)).data for k, v in b_weights.items()}
+            res["marginals_max_abs_diff"] = weights_diff(weights, b_weights)
+            res["three_steps_elbo_max_rel_diff"] = _rel_diff(el_e, b_el)
+            res["three_steps_state_max_abs_diff"] = _state_compare(st_e, b_st)[1]
+            if not torch.allclose(elbo.double(), b_elbo.double(), **STRATEGY_ELBO_TOL):
+                faults.append(f"ELBO {float(elbo)} against no_checkpoint's {float(b_elbo)}")
+            if not all(torch.allclose(t, u, **STRATEGY_TOL) for t, u in zip(tensors, b_tensors)):
+                faults.append("state or gradients off no_checkpoint's")
+            if not (res["marginals_max_abs_diff"] <= weights_tol if weights_tol else
+                    all(torch.allclose(w[k], v.data, **STRATEGY_TOL)
+                        for k, v in b_weights.items())):
+                faults.append("marginals off no_checkpoint's")
+        res["ok"] = not faults
+        for f in faults:
+            fail(phase, f"{name}: {f}")
+        ok = ok and not faults
+        emit(res)
+        out[name] = per_step
+        del st_e, st_g, el_e, el_g, weights
+        torch.cuda.empty_cache()
+    readings, faults = {}, []
+    for name, cs, held in controls:
+        readings[name] = weights_diff(check(cs)[2], base[2])
+        if held != (readings[name] <= weights_tol):
+            faults.append(f"{name}'s weights {readings[name]} against the limit {weights_tol}")
+    if controls:
+        emit({"phase": phase, "controls": readings, "weights_limit": weights_tol,
+              "ok": not faults})
+    for f in faults:
+        fail(phase, f)
+    return out, ok and not faults
+
+
+def _qem_check(problem, K, state, tree):
+    """``_strategy_runs``'s check of a QEM step: one step from ``state`` with
+    a generator of one seed (its ELBO and new state) and the marginals of
+    ``tree`` at ``state``."""
+    import torch
+    from alan_tpu_torch import train
+    from alan_tpu_torch.sample import Sample
+    from alan_tpu_torch.sampler import PermutationSampler
+    gv2K = problem.Q.plate.groupvarname2Kdim(K)
+
+    def check(cs):
+        step, _ = train.qem(problem, K, lr=LR_QEM, computation_strategy=cs)
+        new, elbo = step(state, torch.Generator(device="cuda").manual_seed(2))
+        weights = Sample(problem, tree, gv2K, PermutationSampler, False,
+                         states=state).marginals(computation_strategy=cs).weights
+        return elbo, train._flatten(new)[0], weights
+    return check
+
+
+def _near_truth(problem, truth, scale):
+    """(P's state, Q's state with every Normal's location at ``truth`` (a
+    dict of DTs) and its scale ``scale``)."""
+    import torch
+    from alan_tpu_torch.dims import DT
+    st = problem.Q.state()
+    qp = {}
+    for k, v in st["qem_params"].items():
+        name, arg = k.rsplit("_", 1)
+        t = truth[name].with_dims_front(list(v.dims)).data
+        qp[k] = DT(t.clone() if arg == "loc" else torch.full_like(t, scale), v.dims)
+    return (problem.P.state(), {**st, "qem_params": qp})
+
+
+def phase_strategies_covid_k30():
+    """Full-size covid QEM at K=30 under no_checkpoint, checkpoint,
+    Split("nRs", 23) (4 equal chunks) and Split("nRs", 40) (40, 40 and a
+    remainder of 12), eager and captured, on the recipe's counts
+    (``_covid_recipe``) with Q centred on the recipe's latents (scale
+    ``COVID_NEAR_TRUTH_SCALE``).  At the fake data's Q initial state the
+    ELBO is -2.4e7, a float32 ulp of it 2 nats, so the order of the plate
+    sum alone moves the root's marginal weights by ~1e-2; here by ~2e-3,
+    so the weights are held to ``COVID_WEIGHTS_TOL``, read against the
+    order alone (chunks reversed) and a planted chunking fault
+    (``_control_splits``)."""
+    import torch
+    from alan_tpu_torch import Split, checkpoint, no_checkpoint, train
+    from alan_tpu_torch.models import covid
+    from alan_tpu_torch.sampler import PermutationSampler
+    ps, cov, data, walk = _covid_recipe(covid.nRs, covid.nDs)
+    problem = covid.generate_problem(ps, data, cov, "qem", device="cuda")
+    state = _near_truth(problem, _covid_truth_latents(ps, walk, "cuda"),
+                        COVID_NEAR_TRUTH_SCALE)
+    tree, _ = problem.Q._sample(K_COVID, False, PermutationSampler, problem.all_platedims,
+                                torch.Generator(device="cuda").manual_seed(6),
+                                state=state[1])
+    strategies = [("no_checkpoint", no_checkpoint), ("checkpoint", checkpoint),
+                  ("split_nRs_23", Split("nRs", 23)), ("split_nRs_40", Split("nRs", 40))]
+    reversed_40, off_by_one_40 = _control_splits("nRs", 40)
+    return _strategy_runs(
+        "strategies_covid_k30", problem,
+        lambda cs: (train.qem(problem, K_COVID, lr=LR_QEM, computation_strategy=cs)[0],
+                    state),
+        _qem_check(problem, K_COVID, state, tree), strategies,
+        ["smallk_fwd", "smallk_bwd"],
+        {"model": "covid", "data": "recipe", "nRs": ps["nRs"], "nDs_train": ps["nDs"],
+         "K": K_COVID}, COVID_WEIGHTS_TOL,
+        [("split_nRs_40_reversed", reversed_40, True),
+         ("split_nRs_40_off_by_one_planted_fault", off_by_one_40, False)])[0]
+
+
+def phase_strategies_grouped_k1000():
+    """Grouped MovieLens K=1000, QEM and VI, under no_checkpoint, checkpoint
+    and Split("plate_1", 100): each chunk of 100 users stays on the lazy
+    route (1000^2 x 100 = 1e8 > 2^26), so the lowrank kernels launch in
+    every chunk.  VI is held by its ELBO's gradients (a VI step's Adam
+    update divides each by its own scale: a gradient entry near 0 moves
+    its parameter by up to lr whatever its size)."""
+    import torch
+    from alan_tpu_torch import Split, checkpoint, no_checkpoint, train
+    from alan_tpu_torch.models import movielens as ml
+    from alan_tpu_torch.sample import Sample
+    from alan_tpu_torch.sampler import PermutationSampler
+    out = {}
+    strategies = [("no_checkpoint", no_checkpoint), ("checkpoint", checkpoint),
+                  ("split_plate_1_100", Split("plate_1", 100))]
+    ps, data, cov = ml.load_data_covariates(seed=0, M=ml.M, N=ml.N, device="cuda")
+    for method, qtype, kernels in (("qem", "qem", ["lowrank_fwd", "lowrank_bwd_dD"]),
+                                   ("vi", "opt", ["lowrank_fwd", "lowrank_bwd_dU",
+                                                  "lowrank_bwd_dV"])):
+        problem = ml.grouped_problem(ps, data, cov, qtype, device="cuda")
+        state = (problem.P.state(), problem.Q.state())
+        tree, gv2K = problem.Q._sample(K_MAIN, False, PermutationSampler,
+                                       problem.all_platedims,
+                                       torch.Generator(device="cuda").manual_seed(6))
+        if method == "qem":
+            check = _qem_check(problem, K_MAIN, state, tree)
+        else:
+            def check(cs, problem=problem, tree=tree, gv2K=gv2K):
+                leaves, sP, sQ = train.opt_leaves(problem.P.state(), problem.Q.state())
+                elbo = train.elbo_fn(problem, K_MAIN, True, computation_strategy=cs)(
+                    sP, sQ, torch.Generator(device="cuda").manual_seed(2))
+                grads = torch.autograd.grad(elbo, leaves)
+                weights = Sample(problem, tree, gv2K, PermutationSampler, False).marginals(
+                    computation_strategy=cs).weights
+                return elbo.detach(), list(grads), weights
+        factory = getattr(train, method)
+        out[method], _ = _strategy_runs(
+            f"strategies_grouped_k1000_{method}", problem,
+            lambda cs: factory(problem, K_MAIN, computation_strategy=cs), check,
+            strategies, kernels, {"model": "grouped_movielens", "method": method, "K": K_MAIN})
+        del problem, tree
+        torch.cuda.empty_cache()
+    return out
+
+
+def _covid_recipe(nRs, nDs, seed=0, device="cuda"):
+    """Covid's covariates (``models/covid.fake_data``) with counts by the
+    recipe of ``scripts/moments_vs_hmc_covid.py:51-62``: log-infected a
+    random walk around log(1000) with 0.05 nats a day of drift, counts
+    gamma-Poisson at the model's own psi.  (The prior's own counts explode,
+    and NUTS's step size collapses on them.)  Returns (platesizes,
+    covariates, data, the walk and r = exp(psi))."""
+    import numpy as np
+    from alan_tpu_torch.convert import dt_from_numpy
+    from alan_tpu_torch.models import covid
+    ps, _, _, _, cov, _ = covid.load_data_covariates(seed=seed, nRs=nRs, nDs=nDs,
+                                                     device=device)
+    nT = ps["nDs"]
+    rng = np.random.default_rng(seed + 17)
+    li = np.log(1000.0) + np.cumsum(rng.normal(0.05, 0.15, size=(nRs, nT)), axis=1)
+    r = np.exp(rng.normal(0.0, 1.0, size=(nRs, 1)))
+    lam = rng.gamma(shape=r, scale=np.exp(li) / r)
+    y = rng.poisson(lam).astype(np.float32)
+    return ps, cov, {"obs": dt_from_numpy(y, ("nRs", "nDs"), device)}, (li, r)
+
+
+def phase_covid_k300_split():
+    """The covid K sweep's K = 300 point: covid at 16 x 25 (20 training
+    days), the recipe's counts, QEM at K = 300 under Split("nRs", 2) (8
+    chunks), 5 steps and ``marginals()``: the fused log-matmul and both its
+    fix-ups in every chunk (each chunk checkpointed: the fused kernel keeps
+    20.5 GB a region for its backward).  Unsplit (about 35 GB of factor by
+    ``alan_tpu``'s comment) where it fits, else reported; and one step under
+    Split("nRs", 1), and one of Split("nRs", 2) with its chunks added in
+    reverse order.  Each other run's first ELBO is held to the first's
+    within phase 32's 1e-5, and the state after it reported: at ESS 1 (the
+    marginals' least) the moments follow the rounding of the sums, 0.017
+    apart after one step of Split("nRs", 1) against ("nRs", 2); the reversed runs
+    (Split("nRs", 2) and ("nRs", 1), the same chunks in another order)
+    read the order's share of that, and one region's chain alone and
+    beside another the kernel's.  From Q centred on the recipe's latents
+    (``COVID_NEAR_TRUTH_SCALE``), where the weights spread, one step of
+    Split("nRs", 1) is held to ("nRs", 2)'s: the ELBO within 1e-5, the
+    state within ``STRATEGY_TOL``."""
+    import torch
+    from alan_tpu_torch import Split, no_checkpoint, train
+    from alan_tpu_torch.models import covid
+    phase = "covid_k300_split"
+    nRs, nDs = K300_SHAPE
+    ps, cov, data, walk = _covid_recipe(nRs, nDs)
+    runs, first, ones = {}, None, {}
+    ok = True
+    for name, cs, chunks, steps in (("split_nRs_2", Split("nRs", 2), 8, K300_STEPS),
+                                    ("unsplit", no_checkpoint, 1, K300_STEPS),
+                                    ("split_nRs_1", Split("nRs", 1), 16, 1),
+                                    ("split_nRs_2_reversed", _control_splits("nRs", 2)[0],
+                                     8, 1),
+                                    ("split_nRs_1_reversed", _control_splits("nRs", 1)[0],
+                                     16, 1)):
+        problem = covid.generate_problem(ps, data, cov, "qem", device="cuda")
+        step, state0 = train.qem(problem, K300, lr=LR_QEM, computation_strategy=cs)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+
+        def drive():
+            one, e1 = train._eager(step, 1, state0, gen)
+            last, rest = train._eager(step, steps - 1, one, gen) if steps > 1 else (one, e1[:0])
+            return one, last, torch.cat([e1, rest])
+        try:
+            ((one, state, elbos), ms, launches, peak), joints = _joint_counted(
+                lambda: _driven(drive))
+            marg = m_ms = m_launches = m_peak = None
+            if steps > 1:
+                s = _posterior_sample(problem, state, K300, 7)
+                marg, m_ms, m_launches, m_peak = _driven(
+                    lambda: s.marginals(computation_strategy=cs))
+                del s
+        except torch.cuda.OutOfMemoryError as e:
+            res = {"phase": phase, "strategy": name, "chunks": chunks,
+                   "out_of_memory": str(e).split(". ")[0][:300],
+                   "peak_mem_gb_before_failure": torch.cuda.max_memory_allocated() / 1e9}
+            emit(res)
+            runs[name] = res
+            del problem, step, state0
+            torch.cuda.empty_cache()
+            continue
+        res = {"phase": phase, "strategy": name, "nRs": nRs, "nDs_train": ps["nDs"],
+               "K": K300, "chunks": chunks, "steps": steps,
+               "ms_per_step": ms / steps, "elbos": elbos.tolist(),
+               "launches_per_step": {k: v // steps for k, v in launches.items() if v},
+               "joint_entries_per_step": joints // steps, "peak_mem_gb": peak,
+               "marginals_ms": m_ms,
+               "marginals_launches": m_launches and {k: v for k, v in m_launches.items() if v},
+               "marginals_peak_gb": m_peak,
+               "marginals_min_ess": marg and min(v.data.min().item()
+                                                 for v in marg.ess().values())}
+        faults = []
+        if not (_finite(elbos.tolist()) and launches["logmmexp"] >= chunks * steps):
+            faults.append("a non-finite ELBO, or the fused kernel missed a chunk")
+        if first is None:
+            first = (name, elbos[0], one)
+        else:
+            res["first_step_elbo_rel_diff"] = _rel_diff(elbos[0], first[1])
+            res["first_step_state_max_abs_diff"] = _state_compare(one, first[2])[1]
+            res["first_step_state_max_rel_diff"] = max(
+                _rel_diff(x, y) for x, y in zip(train._flatten(one)[0],
+                                                train._flatten(first[2])[0]))
+            if not torch.allclose(elbos[0].double(), first[1].double(), **STRATEGY_ELBO_TOL):
+                faults.append(f"its first ELBO off {first[0]}'s")
+            if name.endswith("_reversed"):
+                # the same chunks, another order of the plate sum
+                res["order_only_state_max_abs_diff"] = _state_compare(
+                    one, ones[name[:-len("_reversed")]])[1]
+        ones[name] = one
+        res["ok"] = not faults
+        for f in faults:
+            fail(phase, f"{name}: {f}")
+        ok = ok and not faults
+        emit(res)
+        runs[name] = res
+        del problem, step, state0, one, state, marg
+        torch.cuda.empty_cache()
+    # the two chunkings again from Q centred on the recipe's latents, where
+    # the weights spread over particles: one step's state held to STRATEGY_TOL
+    near = {}
+    for name, cs in (("split_nRs_2", Split("nRs", 2)), ("split_nRs_1", Split("nRs", 1))):
+        problem = covid.generate_problem(ps, data, cov, "qem", device="cuda")
+        step, _ = train.qem(problem, K300, lr=LR_QEM, computation_strategy=cs)
+        start = _near_truth(problem, _covid_truth_latents(ps, walk, "cuda"),
+                            COVID_NEAR_TRUTH_SCALE)
+        near[name] = step(start, torch.Generator(device="cuda").manual_seed(5))
+        if name == "split_nRs_2":
+            s = _posterior_sample(problem, start, K300, 7)
+            near_ess = min(v.data.min().item()
+                           for v in s.marginals(computation_strategy=cs).ess().values())
+            del s
+        del problem, step
+        torch.cuda.empty_cache()
+    (st2, el2), (st1, el1) = near["split_nRs_2"], near["split_nRs_1"]
+    near_ok = (torch.allclose(el1.double(), el2.double(), **STRATEGY_ELBO_TOL)
+               and all(torch.allclose(a, b, **STRATEGY_TOL) for a, b in
+                       zip(train._flatten(st1)[0], train._flatten(st2)[0])))
+    if not near_ok:
+        fail(phase, "near the latents, one step of Split(\"nRs\", 1) off (\"nRs\", 2)'s")
+    ok = ok and near_ok
+    # a chunk of 1 region and one of 2 chain the same region's operators
+    # through the fused kernel at different batch sizes (its tile differs
+    # at a batch of 1): the region's chain and its gradient, bitwise or not,
+    # on random operators and on peaked ones (most entries take the fix-ups)
+    from alan_tpu_torch.ops.logmmexp import chain_logmmexp
+
+    def chained(ms):
+        ms = ms.clone().requires_grad_(True)
+        out = chain_logmmexp(ms)
+        w = torch.randn(out.shape[1:], device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(13))
+        g, = torch.autograd.grad((out * w).sum(), [ms])
+        return out[0].detach(), g[0]
+    batch = {}
+    for kind, ms in (
+            ("random", 3.0 * torch.randn((2, ps["nDs"], K300, K300), device="cuda",
+                                         generator=torch.Generator(device="cuda").manual_seed(12))),
+            ("peaked", _peaked_chain((2, ps["nDs"], K300), 12))):
+        (alone, g_alone), (paired, g_paired) = chained(ms[:1]), chained(ms)
+        batch[kind] = {"bitwise": bool(torch.equal(alone, paired) and torch.equal(g_alone, g_paired)),
+                       "max_rel_diff": _rel_diff(alone, paired),
+                       "grad_max_abs_diff": (g_alone - g_paired).abs().max().item()}
+    emit({"phase": phase, "summary": True, "ok": ok,
+          "peak_gb": {k: v.get("peak_mem_gb") for k, v in runs.items()},
+          "out_of_memory": [k for k, v in runs.items() if "out_of_memory" in v],
+          "chain_batch_1_vs_2": batch,
+          "near_latents": {"min_ess": near_ess, "ok": near_ok,
+                           "elbo_rel_diff": _rel_diff(el1, el2),
+                           "state_max_abs_diff": _state_compare(st1, st2)[1]}})
+    return {k: v["launches_per_step"] for k, v in runs.items() if "launches_per_step" in v}
+
+
+def _linear_gaussian(device):
+    """``tests/model_linear_gaussian.py`` on ``device``: (P, data, posterior
+    mean, posterior precision, log evidence)."""
+    import numpy as np
+    import scipy.stats
+    import torch
+    from alan_tpu_torch import BoundPlate, Normal, Plate, named
+    prior_mean, prior_scale, like_scale, mult, N = 2, 2, 3, 2.5, 10
+    data_np = 1.5 + np.random.default_rng(0).standard_normal(N)
+    post_prec = 1 / prior_scale ** 2 + N * mult ** 2 / like_scale ** 2
+    post_mean = (prior_mean / prior_scale ** 2
+                 + mult ** 2 / like_scale ** 2 * (data_np.sum() / mult)) / post_prec
+    known = float(scipy.stats.multivariate_normal.logpdf(
+        data_np, prior_mean * mult * np.ones(N),
+        (mult * prior_scale) ** 2 * np.ones((N, N)) + like_scale ** 2 * np.eye(N)))
+    P = BoundPlate(Plate(a=Normal(prior_mean, prior_scale),
+                         T=Plate(d=Normal(lambda a: mult * a, like_scale))), {"T": N},
+                   device=device)
+    data = {"d": named(torch.tensor(data_np, dtype=torch.float32, device=device), "T")}
+    return P, data, post_mean, post_prec, known
+
+
+def phase_gold_analytic():
+    """``tests/test_mcmc_smc.py``'s five oracles on the card, at their draw
+    counts and with their gates: HMC and NUTS on the linear Gaussian, SMC's
+    evidence, HMC on the Dirichlet-Categorical (stick-breaking) and on an
+    LKJ correlation (the correlation Cholesky transform)."""
+    import numpy as np
+    import torch
+    from alan_tpu_torch import (BoundPlate, Categorical, Dirichlet, LKJCholesky,
+                                MultivariateNormal, Plate, named)
+    from alan_tpu_torch.mcmc import run_hmc
+    from alan_tpu_torch.nuts import run_nuts
+    from alan_tpu_torch.smc import run_smc
+    phase = "gold_analytic"
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+    P, data, post_mean, post_prec, known = _linear_gaussian("cuda")
+    true_sd = (1 / post_prec) ** 0.5
+    checks = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (s, d), sec = timed(lambda: run_hmc(P, data, num_samples=400, num_warmup=400,
+                                        num_chains=4, generator=gen(0)))
+    a = s["a"].data.cpu().numpy()
+    mcse = a.std() / np.sqrt(200)
+    checks["hmc_linear_gaussian"] = dict(
+        s=sec, mean=float(a.mean()), sd=float(a.std()), accept=d["mean_accept"],
+        step_size=d["step_size"],
+        ok=bool(abs(a.mean() - post_mean) < 8 * mcse + 0.05 and abs(a.std() - true_sd) < 0.15
+                and d["mean_accept"] > 0.5))
+    (s, info), sec = timed(lambda: run_smc(P, data, num_particles=512, mutation_steps=8,
+                                           step_size=0.3, generator=gen(1)))
+    a = s["a"].data.cpu().numpy()
+    checks["smc_linear_gaussian_evidence"] = dict(
+        s=sec, mean=float(a.mean()), log_Z=info["log_Z"], known_log_evidence=known,
+        stages=info["stages"], host_syncs=info["host_syncs"],
+        ok=bool(abs(a.mean() - post_mean) < 0.2 and abs(info["log_Z"] - known) < 1.0
+                and info["final_lambda"] == 1.0))
+    (s, d), sec = timed(lambda: run_nuts(P, data, num_samples=400, num_warmup=400,
+                                         num_chains=4, max_depth=6, generator=gen(3)))
+    a = s["a"].data.cpu().numpy()
+    checks["nuts_linear_gaussian"] = dict(
+        s=sec, mean=float(a.mean()), sd=float(a.std()), accept=d["mean_accept"],
+        ok=bool(abs(a.mean() - post_mean) < 0.1 and abs(a.std() - true_sd) < 0.1
+                and d["mean_accept"] > 0.6 and np.abs(a.mean(axis=0) - a.mean()).max() < 0.25))
+    counts = torch.tensor([0, 0, 1, 1, 1, 2, 2, 2, 2, 2], dtype=torch.float32, device="cuda")
+    Pd = BoundPlate(Plate(p=Dirichlet(torch.ones(3)), T=Plate(c=Categorical(probs="p"))),
+                    {"T": 10}, device="cuda")
+    (s, d), sec = timed(lambda: run_hmc(Pd, {"c": named(counts, "T")}, num_samples=500,
+                                        num_warmup=500, num_chains=4, generator=gen(5)))
+    p = s["p"].data.cpu().numpy().mean(axis=(0, 1))
+    alpha = np.array([3., 4., 6.])
+    checks["hmc_dirichlet_categorical"] = dict(
+        s=sec, mean=p.tolist(), ok=bool(np.allclose(p, alpha / alpha.sum(), atol=0.07)))
+    rng = np.random.default_rng(0)
+    true_L = np.linalg.cholesky(np.array([[1., .7], [.7, 1.]]))
+    obs = (rng.standard_normal((200, 2)) @ true_L.T).astype(np.float32)
+    Pl = BoundPlate(Plate(L=LKJCholesky(2, 2.0),
+                          T=Plate(y=MultivariateNormal(torch.zeros(2), scale_tril="L"))),
+                    {"T": 200}, device="cuda")
+    (s, d), sec = timed(lambda: run_hmc(
+        Pl, {"y": named(torch.tensor(obs, device="cuda"), "T")}, num_samples=300,
+        num_warmup=300, num_chains=4, generator=gen(0)))
+    Ls = s["L"].data.cpu().numpy()
+    corr = (Ls @ np.swapaxes(Ls, -1, -2))[..., 0, 1]
+    checks["hmc_lkj_correlation"] = dict(s=sec, corr=float(corr.mean()),
+                                         ok=bool(abs(corr.mean() - 0.7) < 0.1))
+    ok = all(c["ok"] for c in checks.values())
+    if not ok:
+        fail(phase, f"an oracle failed: {checks}")
+    emit({"phase": phase, **checks, "ok": ok})
+
+
+def _covid_truth_latents(ps, walk, device):
+    """Covid's latents at the recipe's own process: log_infected the walk,
+    psi = log r, the walk's drift as RegionR (every NPI, wearing and
+    mobility coefficient 0), its noise scale 0.15 and initial size 1000; a
+    finite start where a prior draw's log_infected overflows float32 at 109
+    days."""
+    import math
+    import numpy as np
+    import torch
+    from alan_tpu_torch.dims import DT
+    li, r = walk
+    nRs = ps["nRs"]
+    f = lambda a, *dims: DT(torch.tensor(np.asarray(a, np.float32), device=device), dims)
+    return {"CM_alpha": f(np.zeros(9)), "Wearing_alpha": f(0.0), "Mobility_alpha": f(0.0),
+            "RegionR": f(0.05), "InitialSize_log_mean": f(math.log(1000.0)),
+            "log_infected_noise_mean": f(math.log(0.15)),
+            "InitialSize_log": f(np.full(nRs, math.log(1000.0)), "nRs"),
+            "log_infected_noise": f(np.full(nRs, math.log(0.15)), "nRs"),
+            "psi": f(np.log(r[:, 0]), "nRs"), "log_infected": f(li, "nRs", "nDs")}
+
+
+def _z_scores(gold, other):
+    """``scripts/covid_k_sweep.py:126-148``'s metric: per coordinate |other
+    - gold| / stderr, stderr the gold's between-chain dispersion of chain
+    means over sqrt(chains), floored at 2% of max(|gold|, 0.05); summarised
+    over every coordinate."""
+    import numpy as np
+    zs = {}
+    for name, (arr, o) in {k: (gold[k], other[k]) for k in other if k in gold}.items():
+        gm = arr.mean(axis=(0, 1))
+        stderr = arr.mean(axis=0).std(axis=0, ddof=1) / np.sqrt(arr.shape[1])
+        stderr = np.maximum(stderr, 0.02 * np.maximum(np.abs(gm), 0.05))
+        if o.shape == gm.shape:
+            zs[name] = np.abs(o - gm) / stderr
+    allz = np.concatenate([z.ravel() for z in zs.values()])
+    return {"by_variable": {k: {"z_median": float(np.median(z)), "z_max": float(z.max())}
+                            for k, z in zs.items()},
+            "n_coords": int(allz.size), "z_median": float(np.median(allz)),
+            "z_p90": float(np.percentile(allz, 90)), "frac_z_lt_5": float(np.mean(allz < 5.0))}
+
+
+def _draws_np(samples):
+    """{name: (draw, chain, ...) numpy}."""
+    return {k: v.with_dims_front(["draw", "chain"]).data.cpu().numpy()
+            for k, v in samples.items()}
+
+
+def _energy_errors(lp32, lp64, theta, gen):
+    """One leapfrog step's energy error from each chain's ``theta`` (chain,
+    D) with unit-normal momenta, at each of ``ENERGY_EPS``, through the
+    float32 log posterior ``lp32`` and the float64 ``lp64`` from the same
+    start: the largest |dH| of each and of their difference, and the
+    float32 log posterior's largest distance from float64 at ``theta``.  A
+    difference far above 1 at every step size is rounding that no step
+    size brings to an acceptance."""
+    import torch
+    from alan_tpu_torch import mcmc
+    th64 = theta.double()
+    r = torch.randn(th64.shape, generator=gen, dtype=torch.float64, device=th64.device)
+    ones = torch.ones(th64.shape[1], dtype=torch.float64, device=th64.device)
+    dH = {}
+    for name, lp, dt in (("f32", lp32, torch.float32), ("f64", lp64, torch.float64)):
+        vg = lambda th, lp=lp: mcmc.value_and_grad(lp, th)
+        th, m = th64.to(dt), r.to(dt)
+        v0, g0 = vg(th)
+        for eps in ENERGY_EPS:
+            _, m1, v1, _ = mcmc._leapfrog(vg, th, m, g0, eps, ones.to(dt), 1)
+            dH[name, eps] = ((v0 - 0.5 * (m * m).sum(1))
+                             - (v1 - 0.5 * (m1 * m1).sum(1))).double()
+    big = lambda t: t.abs().max().item()
+    return {"by_eps": {f"{e:g}": {"dH_f32_max_abs": big(dH["f32", e]),
+                                  "dH_f64_max_abs": big(dH["f64", e]),
+                                  "dH_f32_minus_f64_max_abs": big(dH["f32", e] - dH["f64", e])}
+                       for e in ENERGY_EPS},
+            "logpost_f64": lp64(th64).tolist(),
+            "logpost_f32_minus_f64_max_abs": big(lp32(th64.float()).double() - lp64(th64))}
+
+
+def phase_gold_covid():
+    """The gold samplers on covid.  Full size (92 x 109 training days, the
+    recipe's counts): NUTS (4 chains, max_depth 8) and HMC, each iteration a
+    captured CUDA graph, in float64: the float32 log posterior misses
+    float64 by ~1e-3 relative there (the NegativeBinomial's lgamma terms
+    of counts up to 3e7 cancel), tens of nats, and a leapfrog's energy
+    error with it, so no step size is accepted (``_energy_errors`` reads
+    it at both precisions).  Gates: the log posterior and its gradient at
+    4 thetas within 1e-5 (gradient 1e-4 of its largest entry) of the
+    port's float64 evaluation on the host; one NUTS draw at max_depth 4
+    within 1e-4 of the host port's from the same state and noise; 5
+    captured draws bitwise 5 eager ones.  At 16 x 25 (the script's size),
+    NUTS in float64 and SMC (float32) with 2048 particles.  Reported: ms
+    per draw, gradient evaluations a second, acceptance, step size,
+    split-R-hat and bulk ESS (``diagnostics``), and the SMC-vs-NUTS and
+    MP-QEM-K30-vs-NUTS z-scores (not gated: the finite-K bias is known),
+    labelled ``unconverged`` where a gold run's R-hat exceeds 1.1."""
+    import numpy as np
+    import torch
+    from alan_tpu_torch import diagnostics, mean, mcmc, train
+    from alan_tpu_torch.dims import DT
+    from alan_tpu_torch.models import covid
+    from alan_tpu_torch.nuts import _Draw, run_nuts
+    from alan_tpu_torch.smc import run_smc
+    phase = "gold_covid"
+    gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
+    faults = []
+    f64 = lambda tree: {k: DT(v.data.double(), v.dims) for k, v in tree.items()}
+    ps, cov, data32, walk = _covid_recipe(covid.nRs, covid.nDs)
+    P, data = covid.get_P(ps, f64(cov), device="cuda"), f64(data32)
+    latents = f64(_covid_truth_latents(ps, walk, "cuda"))
+    logpost = mcmc.LogPost(P, data, latents)
+    logpost32 = mcmc.LogPost(covid.get_P(ps, cov, device="cuda"), data32,
+                             _covid_truth_latents(ps, walk, "cuda"))
+    D = logpost.D
+
+    # the log posterior on the card against float64 on the host
+    ps_h, cov_h, data_h, _ = _covid_recipe(covid.nRs, covid.nDs, device="cpu")
+    logpost_h = mcmc.LogPost(covid.get_P(ps_h, f64(cov_h), device="cpu"), f64(data_h),
+                             f64(_covid_truth_latents(ps_h, walk, "cpu")))
+    thetas = logpost.theta0[None] + 0.01 * torch.randn(
+        (4, D), generator=gen(1), dtype=torch.float64, device="cuda")
+    vh, gh = mcmc.value_and_grad(logpost_h, thetas.cpu())
+
+    def errs(v, g):
+        return (((v.double().cpu() - vh).abs() / vh.abs()).max().item(),
+                ((g.double().cpu() - gh).abs().max() / gh.abs().max()).item())
+    v_err, g_err = errs(*mcmc.value_and_grad(logpost, thetas))
+    v_err32, g_err32 = errs(*mcmc.value_and_grad(logpost32, thetas.float()))
+    if not (v_err <= 1e-5 and g_err <= 1e-4):
+        faults.append(f"log posterior {v_err} or gradient {g_err} off the host's float64")
+    energy = _energy_errors(logpost32, logpost, thetas, gen(10))
+
+    # NUTS at full size, captured
+    W, S, C, MD = GOLD_NUTS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    samples, diag = run_nuts(P, data, num_samples=S, num_warmup=W, num_chains=C, max_depth=MD,
+                             generator=gen(2), latents=latents)
+    torch.cuda.synchronize()
+    nuts_s = time.perf_counter() - t0
+    nuts_peak = torch.cuda.max_memory_allocated() / 1e9
+    theta = diag["theta"]
+    if not bool(torch.isfinite(theta).all()):
+        faults.append("a NUTS draw is not finite")
+    leapfrogs = (2 ** MD - 1 + 1) * C           # a draw's gradients, every chain
+    nuts_ms = (nuts_s - diag["capture_s"]) / (W + S) * 1e3
+    gold = _draws_np(samples)
+
+    # 5 draws captured against eager, bitwise
+    short = dict(num_samples=5, num_warmup=0, num_chains=C, max_depth=MD, latents=latents)
+    _, cd = run_nuts(P, data, generator=gen(3), **short)
+    loop = mcmc._loop
+    mcmc._loop = lambda step, n, state, g: (
+        (*train._eager(step, n, state, g), 0.0) if n else loop(step, n, state, g))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, ed = run_nuts(P, data, generator=gen(3), **short)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) / 5 * 1e3
+    finally:
+        mcmc._loop = loop
+    nuts_bitwise = bool(torch.equal(cd["theta"], ed["theta"]))
+    if not nuts_bitwise:
+        faults.append("5 captured NUTS draws differ from the eager ones")
+
+    # one draw at max_depth 4 from the same state and noise, card and host
+    eps = torch.tensor(diag["step_size"], device="cuda")
+    inv_mass = torch.ones(D, device="cuda")
+    g4 = gen(4)
+    r0 = torch.randn((C, D), generator=g4, device="cuda")
+    bits = torch.rand((C, 4), generator=g4, device="cuda") < 0.5
+    merge, leaf = (torch.rand((C, n), generator=g4, device="cuda") for n in (4, 15))
+
+    def one_draw(lp, dev):
+        dirs = torch.where(bits.to(dev), 1.0, -1.0)
+        m, lf = merge.to(dev), leaf.to(dev)
+        draw = _Draw(lambda th: mcmc.value_and_grad(lp, th), 4, lambda k: lf[:, k],
+                     lambda d: m[:, d], lambda d: dirs[:, d])
+        return draw(theta[-1].to(dev), r0.to(dev), eps.to(dev), inv_mass.to(dev))[0]
+    z_card = one_draw(logpost, "cuda").cpu()
+    z_host = one_draw(logpost_h, "cpu")
+    draw_err = (z_card - z_host).abs().max().item()
+    if not draw_err <= 1e-4:
+        faults.append(f"a NUTS draw at max_depth 4 differs from the host's by {draw_err}")
+
+    # HMC at full size, captured
+    Wh, Sh, L = GOLD_HMC
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h_samples, h_diag = mcmc.run_hmc(P, data, num_samples=Sh, num_warmup=Wh, num_chains=C,
+                                     num_leapfrog=L, generator=gen(5), latents=latents)
+    torch.cuda.synchronize()
+    hmc_s = time.perf_counter() - t0 - h_diag["capture_s"]
+    if not bool(torch.isfinite(h_diag["theta"]).all()):
+        faults.append("an HMC draw is not finite")
+
+    def diagnose(draws):
+        out = {}
+        for name in ("CM_alpha", "Wearing_alpha", "Mobility_alpha", "RegionR",
+                     "InitialSize_log_mean", "log_infected_noise_mean", "InitialSize_log",
+                     "log_infected_noise", "psi", "log_infected"):
+            rh, es = diagnostics.split_rhat(draws[name]), diagnostics.ess_bulk(draws[name])
+            out[name] = {"rhat_max": float(np.max(rh)), "ess_min": float(np.min(es)),
+                         "ess_median": float(np.median(es))}
+        return out
+
+    def z_against(gold_draws, gold_diag, other):
+        """The z-scores of ``other`` against a gold run, keyed ``unconverged``
+        where the run's R-hat exceeds 1.1 anywhere."""
+        ok = all(v["rhat_max"] <= 1.1 for v in gold_diag.values())
+        return {"z_vs_nuts" if ok else "z_vs_nuts_unconverged": _z_scores(gold_draws, other)}
+
+    # MP QEM at K = 30 on the same data, against the NUTS draws
+    problem = covid.generate_problem(ps, data32, cov, "qem", device="cuda")
+    step, state = train.qem(problem, K_COVID, lr="0.1/t@100")
+    t0 = time.perf_counter()
+    state, _ = train.scan_steps(step, GOLD_QEM_ITERS)(state, gen(6))
+    (stP, stQ), _ = state
+    s = _posterior_sample(problem, (stP, stQ), K_COVID, 7)
+    marg = s.marginals()
+    qem_s = time.perf_counter() - t0
+    mp = {k: marg.moments(k, mean).with_dims_front(list(latents[k].dims)).data.cpu().numpy()
+          for k in gold}
+
+    # NUTS (float64) and SMC (float32) at the script's 16 x 25
+    nR, nD = GOLD_SMC_SHAPE
+    ps_s, cov_s, data_s, walk_s = _covid_recipe(nR, nD)
+    P_s = covid.get_P(ps_s, cov_s, device="cuda")
+    lat_s = _covid_truth_latents(ps_s, walk_s, "cuda")
+    P_s64 = covid.get_P(ps_s, f64(cov_s), device="cuda")
+    small_energy = _energy_errors(mcmc.LogPost(P_s, data_s, lat_s),
+                                  mcmc.LogPost(P_s64, f64(data_s), f64(lat_s)),
+                                  mcmc.LogPost(P_s64, f64(data_s), f64(lat_s)).theta0[None]
+                                  .expand(4, -1), gen(11))
+    Ws, Ss, Cs, MDs = GOLD_SMALL_NUTS
+    t0 = time.perf_counter()
+    small, small_diag = run_nuts(P_s64, f64(data_s), num_samples=Ss, num_warmup=Ws,
+                                 num_chains=Cs, max_depth=MDs, generator=gen(8),
+                                 latents=f64(lat_s))
+    torch.cuda.synchronize()
+    small_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    smc, smc_info = run_smc(P_s, data_s, num_particles=GOLD_SMC_PARTICLES, generator=gen(9),
+                            latents=lat_s)
+    smc_s = time.perf_counter() - t0
+    small_np = _draws_np(small)
+    smc_means = {k: v.with_dims_front(["particle", *lat_s[k].dims]).data.cpu().numpy()
+                 .mean(axis=0) for k, v in smc.items()}
+    gold_diag, small_gold_diag = diagnose(gold), diagnose(small_np)
+    res = {"phase": phase, "D": D, "nRs": ps["nRs"], "nDs_train": ps["nDs"],
+           "logpost_rel_err_vs_f64": v_err, "grad_rel_err_vs_f64": g_err,
+           "f32_logpost_rel_err_vs_f64": v_err32, "f32_grad_rel_err_vs_f64": g_err32,
+           "energy_errors": energy, "dtype": "float64",
+           "nuts": {"warmup": W, "draws": S, "chains": C, "max_depth": MD, "s": nuts_s,
+                    "capture_s": diag["capture_s"],
+                    "ms_per_draw_captured": nuts_ms, "ms_per_draw_eager": eager_ms,
+                    "grad_evals_per_s_captured": leapfrogs / (nuts_ms / 1e3),
+                    "grad_evals_per_s_eager": leapfrogs / (eager_ms / 1e3),
+                    "mean_accept": diag["mean_accept"], "step_size": diag["step_size"],
+                    "peak_mem_gb": nuts_peak, "captured_bitwise_eager_5_draws": nuts_bitwise,
+                    "depth4_draw_max_abs_diff_host": draw_err,
+                    "diagnostics": gold_diag},
+           "hmc": {"warmup": Wh, "draws": Sh, "num_leapfrog": L, "s": hmc_s,
+                   "capture_s": h_diag["capture_s"],
+                   "grad_evals_per_s_captured": (L + 1) * C * (Wh + Sh) / hmc_s,
+                   "ms_per_draw_captured": hmc_s / (Wh + Sh) * 1e3,
+                   "mean_accept": h_diag["mean_accept"], "step_size": h_diag["step_size"],
+                   "diagnostics": diagnose(_draws_np(h_samples))},
+           "qem_k30": {"iters": GOLD_QEM_ITERS, "s": qem_s, **z_against(gold, gold_diag, mp)},
+           "small": {"nRs": nR, "nDs_train": ps_s["nDs"], "D": small_diag["theta"].shape[-1],
+                     "nuts_s": small_s, "nuts_capture_s": small_diag["capture_s"],
+                     "nuts_ms_per_draw_captured":
+                         (small_s - small_diag["capture_s"]) / (Ws + Ss) * 1e3,
+                     "nuts_mean_accept": small_diag["mean_accept"],
+                     "nuts_step_size": small_diag["step_size"],
+                     "energy_errors": small_energy,
+                     "nuts_diagnostics": small_gold_diag,
+                     "smc_s": smc_s, "smc_particles": GOLD_SMC_PARTICLES,
+                     "smc_log_Z": smc_info["log_Z"], "smc_stages": smc_info["stages"],
+                     "smc_host_syncs": smc_info["host_syncs"],
+                     "smc_mutation_accept": smc_info["mean_mutation_accept"],
+                     **{f"smc_{k}": v for k, v in
+                        z_against(small_np, small_gold_diag, smc_means).items()}}}
+    if not bool(torch.isfinite(smc_info["theta"]).all()):
+        faults.append("an SMC particle is not finite")
+    res["ok"] = not faults
+    for f in faults:
+        fail(phase, f)
+    emit(res)
+
+
+def phase_checkpoint_resume():
+    """Resume on the card, bitwise: covid QEM at K=30 under ``scan_steps``,
+    10 steps against 5, a save, a load into a fresh problem and 5 more;
+    grouped MovieLens VI at K=1000 (Adam's state) the same way; a file
+    written on the card loads on the CPU and back."""
+    import tempfile
+    import torch
+    from alan_tpu_torch import train
+    from alan_tpu_torch.checkpointing import load_checkpoint, save_checkpoint
+    from alan_tpu_torch.models import covid
+    from alan_tpu_torch.models import movielens as ml
+    phase = "checkpoint_resume"
+    checks = {}
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")
+                                     if os.path.isdir(os.path.join(REPO, "build")) else None) as tmp:
+        def resume(name, make, n):
+            step, state0 = make()
+            full, _ = train.scan_steps(step, n)(state0,
+                                                torch.Generator(device="cuda").manual_seed(3))
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            half, _ = train.scan_steps(step, n // 2)(state0, gen)
+            path = os.path.join(tmp, name)
+            save_checkpoint(path, {"state": half, "generator": gen})
+            ck = load_checkpoint(path)
+            step2, _ = make()
+            resumed, _ = train.scan_steps(step2, n - n // 2)(ck["state"], ck["generator"])
+            a, sa = train._flatten(full)
+            b, sb = train._flatten(resumed)
+            same = sa == sb and all(torch.equal(x, y) for x, y in zip(a, b))
+            # the card's file on the host and back
+            host = load_checkpoint(path, device="cpu")
+            save_checkpoint(path + "_host", {"state": host["state"]})
+            back = load_checkpoint(path + "_host", device="cuda")["state"]
+            h, _ = train._flatten(host["state"])
+            c, _ = train._flatten(back)
+            round_trip = all(x.device.type == "cpu" for x in h) and all(
+                y.device.type == "cuda" and torch.equal(x, y)
+                for x, y in zip(train._flatten(half)[0], c))
+            checks[name] = {"steps": n, "bitwise": bool(same),
+                            "card_host_card_bitwise": bool(round_trip),
+                            "leaves": len(a), "bytes": os.path.getsize(path + ".npz")}
+        ps, _, data, _, cov, _ = covid.load_data_covariates(seed=0, device="cuda")
+        resume("covid_qem_k30", lambda: train.qem(
+            covid.generate_problem(ps, data, cov, "qem", device="cuda"), K_COVID,
+            lr="0.1/t@100"), 10)
+        mps, mdata, mcov = ml.load_data_covariates(seed=0, M=ml.M, N=ml.N, device="cuda")
+        resume("grouped_movielens_vi_k1000", lambda: train.vi(
+            ml.grouped_problem(mps, mdata, mcov, "opt", device="cuda"), K_MAIN), 10)
+    ok = all(c["bitwise"] and c["card_host_card_bitwise"] for c in checks.values())
+    if not ok:
+        fail(phase, f"resume not bitwise: {checks}")
+    emit({"phase": phase, **checks, "ok": ok})
+
+
 def nvidia_smi_clocks():
     """The card's SM clock, power draw and power limit, sampled now."""
     out = subprocess.run(
@@ -3630,6 +4574,17 @@ def main():
     ar1_launches = phase_ar1_large_k()
     ar1_post_launches = phase_ar1_ffbs_k1000()
     graph_launches.update(phase_scan_ar1_k1000())
+    strategy_launches, seconds = {}, {}
+    for name in ("strategies_covid_k30", "strategies_grouped_k1000", "covid_k300_split",
+                 "gold_analytic", "gold_covid", "checkpoint_resume"):
+        t0 = time.perf_counter()
+        out = globals()[f"phase_{name}"]()
+        seconds[name] = time.perf_counter() - t0
+        if name == "strategies_grouped_k1000":
+            strategy_launches.update({f"grouped_k1000_{m}": v for m, v in out.items()})
+        elif out is not None:
+            strategy_launches[name.replace("strategies_", "")] = out
+    emit({"phase": "strategies_and_gold", "seconds": seconds})
 
     def graphed(key):
         """Each captured path's launches of one counter: per replay, and
@@ -3637,6 +4592,12 @@ def main():
         return {path: {"per_replay": launches[key], "replays": replays}
                 for path, (launches, replays) in graph_launches.items()
                 if launches.get(key)}
+
+    def by_strategy(*keys):
+        """Each strategy path's launches a step of the counters ``keys``."""
+        return {path: {st: {k: per.get(k, 0) for k in keys} for st, per in runs.items()}
+                for path, runs in strategy_launches.items()
+                if any(per.get(k) for per in runs.values() for k in keys)}
 
     smallk_src = "alan_tpu_torch/csrc/smallk_logmmexp.cu"
     emit({"kernels": [
@@ -3647,6 +4608,7 @@ def main():
              posterior_launches={k: v["lowrank_fwd"] for k, v in post_launches.items()},
              graph_launches=graphed("lowrank_fwd"),
              families_launches=fam_launches["lowrank_fwd"],
+             strategy_launches=by_strategy("lowrank_fwd"),
              families_ms={k: {m: v[m] for m in ("F", "fwd_ms", "plain_fwd_ms",
                                                  "fwd_bound_tc_ms")}
                           for k, v in fam_ms.items()},
@@ -3663,6 +4625,8 @@ def main():
              graph_launches={m: graphed(f"lowrank_bwd_{m}") for m in ("dD", "dU", "dV")},
              families_launches_by_mode={m: fam_launches[f"lowrank_bwd_{m}"]
                                         for m in ("dD", "dU", "dV")},
+             strategy_launches=by_strategy("lowrank_bwd_dD", "lowrank_bwd_dU",
+                                           "lowrank_bwd_dV"),
              families_ms={k: {m: v[m] for m in ("F", "bwd_dD_ms", "bwd_all_grads_ms",
                                                  "bwd_dD_bound_tc_ms",
                                                  "bwd_all_grads_bound_tc_ms")}
@@ -3675,6 +4639,7 @@ def main():
              posterior_launches={k: v["smallk_fwd"] for k, v in covid_post_launches.items()},
              graph_launches=graphed("smallk_fwd"),
              canonical_launches={k: v.get("smallk_fwd") for k, v in canonical_chain.items()},
+             strategy_launches=by_strategy("smallk_fwd"),
              covid_own={k: FIXUP_REPORTS["covid_own"][k] for k in (
                  "chain_fwd_ms", "fast_fwd_ms", "fixup_fwd_ms", "fixup_fwd_bound_ms",
                  "joint_entries")},
@@ -3686,6 +4651,7 @@ def main():
              posterior_launches={k: v["smallk_bwd"] for k, v in covid_post_launches.items()},
              graph_launches=graphed("smallk_bwd"),
              canonical_launches={k: v.get("smallk_bwd") for k, v in canonical_chain.items()},
+             strategy_launches=by_strategy("smallk_bwd"),
              covid_own={k: FIXUP_REPORTS["covid_own"][k] for k in (
                  "chain_bwd_ms", "fast_bwd_ms", "fixup_bwd_ms", "fixup_bwd_bound_ms",
                  "flagged_pairs_bwd")},
@@ -3695,6 +4661,7 @@ def main():
              replaces="alan_tpu/ops/pallas_logmmexp.py:28",
              launches=ar1_launches["logmmexp"],
              posterior_launches={"importance_sample": ar1_post_launches["logmmexp"]},
+             strategy_launches=by_strategy("logmmexp"),
              graph_launches=graphed("logmmexp"),
              ar1_own_fixups=FIXUP_REPORTS["ar1_own"],
              ar1_own_bwd_fixups=[{k: r[k] for k in (

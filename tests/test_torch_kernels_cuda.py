@@ -55,7 +55,17 @@ and no JAX it runs without the suite's conftest:
   parameters and of an x-side term; the kernels at F = 1 and 2 among the
   cases above;
 * covid with its corr_Q proposal (a MultivariateNormal, whose Cholesky
-  factor the graph holds): ``scan_steps`` against the eager loop.
+  factor the graph holds): ``scan_steps`` against the eager loop;
+* each kernel under ``Split`` and under ``checkpoint`` inside a
+  ``scan_steps`` capture (QEM steps of small grouped MovieLens through the
+  lowrank kernels, small covid through the chain kernels at K = 10 and
+  through the fused kernel at K = 128) against the eager loop with no
+  strategy: ELBOs 1e-5 relative, state 1e-4, the captured loop bitwise its
+  eager loop under the same strategy, the kernels launched in every chunk;
+* HMC and NUTS (``mcmc.run_hmc``, ``nuts.run_nuts``) on the linear
+  Gaussian: the captured loops bitwise the eager loops;
+* a checkpoint resume on the card: 4 captured covid QEM steps bitwise 2, a
+  save, a load into a fresh problem and 2 more.
 """
 import numpy as np
 import pytest
@@ -824,3 +834,93 @@ def test_covid_corrq_scan_matches_eager(card):
         torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
     cov_q = st_s[1]["qem_params"]["CM_alpha_covariance_matrix"].data
     assert int(torch.linalg.cholesky_ex(cov_q)[1]) == 0
+
+
+# ---- computation strategies, the gold samplers and resume ------------------------
+
+def _strategy_case(kind, card):
+    """(problem, K, the strategy's Split, the launch counter of its kernel)."""
+    from alan_tpu_torch import Split
+    from alan_tpu_torch.models import covid
+    if kind == "lowrank":
+        ps, data, cov = tml.load_data_covariates(seed=3, M=20, N=5, device=card)
+        return (tml.grouped_problem(ps, data, cov, "qem", device=card), 30,
+                Split("plate_1", 7), (tk, "FWD_LAUNCHES"))
+    ps, _, data, _, cov, _ = covid.load_data_covariates(seed=0, nRs=4, nDs=8, device=card)
+    prob = covid.generate_problem(ps, data, cov, "qem", device=card)
+    if kind == "chain":
+        return prob, 10, Split("nRs", 3), (tsk, "FWD_LAUNCHES")
+    return prob, 128, Split("nRs", 1), (tlk, "LAUNCHES")
+
+
+@pytest.mark.parametrize("kind", ["lowrank", "chain", "fused"])
+@pytest.mark.parametrize("strategy", ["split", "checkpoint"])
+def test_strategy_inside_a_capture_matches_no_strategy(card, monkeypatch, kind, strategy):
+    from alan_tpu_torch import checkpoint, no_checkpoint
+    monkeypatch.setenv("ALAN_TPU_LOWRANK_MIN", "1")
+    monkeypatch.setenv("ALAN_TPU_LAZY_LOWRANK", "1")
+    prob, K, split, (mod, counter) = _strategy_case(kind, card)
+    cs = split if strategy == "split" else checkpoint
+    n = 3
+    gen = lambda: torch.Generator(device=card).manual_seed(4)
+    base_step, state0 = train.qem(prob, K, lr=0.1, computation_strategy=no_checkpoint,
+                                  device=card)
+    step, _ = train.qem(prob, K, lr=0.1, computation_strategy=cs, device=card)
+    st_b, el_b = train._eager(base_step, n, state0, gen())
+    before = getattr(mod, counter)
+    st_e, el_e = train._eager(step, 1, state0, gen())
+    per_step = getattr(mod, counter) - before
+    chunks = 1 if strategy == "checkpoint" else len(split._split_bounds(
+        prob.all_platedims[split.platename]))
+    assert per_step >= chunks
+    st_e, el_e = train._eager(step, n, state0, gen())
+    st_s, el_s = train.scan_steps(step, n)(state0, gen())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(el_e, el_b, rtol=1e-5, atol=1e-6)
+    for x, y in zip(train._flatten(st_e)[0], train._flatten(st_b)[0]):
+        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4)
+    assert torch.equal(el_s, el_e)
+    for x, y in zip(train._flatten(st_s)[0], train._flatten(st_e)[0]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("sampler", ["hmc", "nuts"])
+def test_gold_sampler_capture_is_bitwise_eager(card, monkeypatch, sampler):
+    from alan_tpu_torch import BoundPlate, Normal, Plate, mcmc, named
+    from alan_tpu_torch.nuts import run_nuts
+    data_np = 1.5 + np.random.default_rng(0).standard_normal(10)
+    P = BoundPlate(Plate(a=Normal(2.0, 2.0), T=Plate(d=Normal(lambda a: 2.5 * a, 3.0))),
+                   {"T": 10}, device=card)
+    data = {"d": named(torch.tensor(data_np, dtype=torch.float32, device=card), "T")}
+    run = {"hmc": mcmc.run_hmc, "nuts": run_nuts}[sampler]
+    kw = dict(num_samples=20, num_warmup=20, num_chains=4)
+    if sampler == "nuts":
+        kw["max_depth"] = 4
+    gen = lambda: torch.Generator(device=card).manual_seed(11)
+    captured, cd = run(P, data, generator=gen(), **kw)
+    loop = mcmc._loop
+    monkeypatch.setattr(mcmc, "_loop", lambda step, n, state, g: (
+        (*train._eager(step, n, state, g), 0.0) if n else loop(step, n, state, g)))
+    eager, ed = run(P, data, generator=gen(), **kw)
+    assert torch.equal(cd["theta"], ed["theta"])
+    assert cd["step_size"] == ed["step_size"] and cd["mean_accept"] == ed["mean_accept"]
+    assert torch.isfinite(cd["theta"]).all()
+
+
+def test_checkpoint_resume_on_the_card(card, tmp_path):
+    from alan_tpu_torch.checkpointing import load_checkpoint, save_checkpoint
+    from alan_tpu_torch.models import covid
+    ps, _, data, _, cov, _ = covid.load_data_covariates(seed=0, nRs=4, nDs=8, device=card)
+    make = lambda: train.qem(covid.generate_problem(ps, data, cov, "qem", device=card), 10,
+                             lr="0.1/t@2", device=card)
+    step, state0 = make()
+    full, _ = train.scan_steps(step, 4)(state0, torch.Generator(device=card).manual_seed(3))
+    gen = torch.Generator(device=card).manual_seed(3)
+    half, _ = train.scan_steps(step, 2)(state0, gen)
+    save_checkpoint(str(tmp_path / "ck"), {"state": half, "generator": gen})
+    ck = load_checkpoint(str(tmp_path / "ck"))
+    assert ck["generator"].device.type == "cuda"
+    step2, _ = make()
+    resumed, _ = train.scan_steps(step2, 2)(ck["state"], ck["generator"])
+    for x, y in zip(train._flatten(full)[0], train._flatten(resumed)[0]):
+        assert x.device.type == "cuda" and torch.equal(x, y)

@@ -16,15 +16,21 @@ here in numpy and scipy; the oracles are analytic, so no case runs JAX.
   within the model's gap (:139-160);
 * ``test_moments_vs_moments``: the moments of two samples, one of them
   reparameterised or drawn by another sampler, within 6 combined standard
-  errors (:163-176).
+  errors (:163-176);
+* ``test_compute_strategy``: the compute-strategy oracles (:179-221) at
+  K=3: ``elbo_vi`` under ``checkpoint`` and ``no_checkpoint`` against
+  ``no_checkpoint`` and the model's own strategy (its ``Split`` in
+  ``tests/model_*.py``, else ``no_checkpoint``), ``elbo_rws`` and the
+  marginals' moments under each against the model's own strategy (ELBOs
+  rtol 1e-5 / atol 1e-6, moments ``allclose_dt``'s rtol 1e-4 / atol
+  1e-5).
 
 Each model takes one sampler and reparameterisation (in turn over the
 models); ``bernoulli_no_plate`` and ``linear_multivariate_gaussian_param``
 take the whole grid.  The importance samples of a model with two latents
 at its root at K = 1000 replay one categorical over K^2 joint particles for
 each of N = 1000 draws (1e9 Gumbel variates, ~12 s on a host core), as
-``alan_tpu`` does; the grid is run on the two models without one.  The
-compute-strategy oracles (:179-221) wait for ``Split``.
+``alan_tpu`` does; the grid is run on the two models without one.
 """
 import itertools
 import math
@@ -37,8 +43,8 @@ import torch
 
 from alan_tpu_torch import (Bernoulli, Beta, BoundPlate, CategoricalSampler, Data,
                             Group, MultivariateNormal, Normal, OptParam,
-                            PermutationSampler, Plate, Problem, QEMParam, named,
-                            samplers)
+                            PermutationSampler, Plate, Problem, QEMParam, Split,
+                            checkpoint, named, no_checkpoint, samplers)
 from alan_tpu_torch import moments as tm
 from test_torch_harness import port_np
 
@@ -50,7 +56,7 @@ class Zoo:
     def __init__(self, P, Q, data, platesizes, moments, known_moments=None,
                  known_elbo=None, moment_K=30, elbo_K=30, elbo_iters=20,
                  elbo_gap_cat=1, elbo_gap_perm=1, importance_N=1000,
-                 extra_opt_params=None):
+                 extra_opt_params=None, computation_strategy=no_checkpoint):
         self.problem = Problem(
             BoundPlate(P, platesizes, device="cpu"),
             BoundPlate(Q, platesizes, extra_opt_params=extra_opt_params, device="cpu"),
@@ -61,6 +67,7 @@ class Zoo:
         self.moment_K, self.elbo_K, self.elbo_iters = moment_K, elbo_K, elbo_iters
         self.elbo_gap_cat, self.elbo_gap_perm = elbo_gap_cat, elbo_gap_perm
         self.importance_N = importance_N
+        self.computation_strategy = computation_strategy
 
 
 def _t(a):
@@ -80,7 +87,8 @@ def model1():
     data = np.random.default_rng(11).standard_normal((4, 4))
     return Zoo(P, Q, {"e": named(_t(data), "p1", "p2")}, {"p1": 4, "p2": 4},
                [("a", tm.mean), ("b", tm.mean), ("c", tm.mean), ("d", tm.mean)],
-               moment_K=1000, extra_opt_params={"d_scale": named(torch.ones(4), "p1")})
+               moment_K=1000, extra_opt_params={"d_scale": named(torch.ones(4), "p1")},
+               computation_strategy=Split("p1", 3))
 
 
 def bernoulli_no_plate():
@@ -88,10 +96,11 @@ def bernoulli_no_plate():
     Q = Plate(p=Beta(1, 1), T=Plate(coin=Data()))
     data = np.concatenate([np.zeros(3), np.ones(7)])
     return Zoo(P, Q, {"coin": named(_t(data), "T")}, {"T": 10}, [("p", tm.mean)],
-               known_moments={("p", tm.mean): (7 + 2) / (2 + 1 + 10)}, moment_K=10000)
+               known_moments={("p", tm.mean): (7 + 2) / (2 + 1 + 10)}, moment_K=10000,
+               computation_strategy=Split("T", 4))
 
 
-def _two_params(seed, a_scale, b_scale, q_b, q_a=None):
+def _two_params(seed, a_scale, b_scale, q_b, q_a=None, split=no_checkpoint):
     """``linear_gaussian_two_params`` and its corr_Q variants: a -> b -> d."""
     prior_mean, like_scale, N = 2, 3, 10
     prior_var = a_scale ** 2 + b_scale ** 2
@@ -107,15 +116,18 @@ def _two_params(seed, a_scale, b_scale, q_b, q_a=None):
                [("a", tm.mean), ("a", tm.mean2), ("b", tm.mean), ("b", tm.mean2)],
                known_moments={("b", tm.mean): post_mean,
                               ("b", tm.mean2): post_mean ** 2 + 1 / post_prec},
-               known_elbo=known_elbo, moment_K=1000, elbo_K=1000)
+               known_elbo=known_elbo, moment_K=1000, elbo_K=1000,
+               computation_strategy=split)
 
 
 def linear_gaussian_two_params():
-    return _two_params(1, 0.1, 1, {"b": Normal(1, 4)}, {"a": Normal(1, 4)})
+    return _two_params(1, 0.1, 1, {"b": Normal(1, 4)}, {"a": Normal(1, 4)},
+                       Split("T", 5))
 
 
 def linear_gaussian_two_params_corr_Q():
-    return _two_params(2, 1, 1, {"b": Normal("a", 1.2)}, {"a": Normal(1, 4)})
+    return _two_params(2, 1, 1, {"b": Normal("a", 1.2)}, {"a": Normal(1, 4)},
+                       Split("T", 5))
 
 
 def linear_gaussian_two_params_corr_Q_reversed():
@@ -161,7 +173,7 @@ def linear_gaussian_latents_dangling():
                known_moments={("a", tm.mean): post_mean,
                               ("a", tm.mean2): post_mean ** 2 + 1 / post_prec},
                known_elbo=known_elbo, moment_K=100, elbo_K=1000, elbo_iters=30,
-               elbo_gap_cat=2)
+               elbo_gap_cat=2, computation_strategy=Split("T", 5))
 
 
 def linear_gaussian_latents_batch():
@@ -180,7 +192,7 @@ def linear_gaussian_latents_batch():
                [("a", tm.mean), ("a", tm.mean2), ("z", tm.mean), ("z", tm.mean2)],
                known_moments={("a", tm.mean): post_mean,
                               ("a", tm.mean2): post_mean ** 2 + 1 / post_prec},
-               moment_K=1000)
+               moment_K=1000, computation_strategy=Split("T", 3))
 
 
 def linear_multivariate_gaussian():
@@ -393,3 +405,34 @@ def test_zoo_covers_the_non_timeseries_models():
     assert set(KNOWN_MOMENTS) == {n for n in ZOO if zoo(n).known_moments}
     assert set(KNOWN_ELBO) == {n for n in ZOO if zoo(n).known_elbo is not None}
     assert math.isclose(zoo("bernoulli_no_plate").known_moments[("p", tm.mean)], 9 / 13)
+
+
+def _allclose_dt(a, b):
+    assert set(a.dims) == set(b.dims)
+    np.testing.assert_allclose(port_np(a, a.dims), port_np(b, a.dims), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("tp_name,oracle,compstrat", [
+    (n, o, c) for n in ZOO for o in ("elbo_vi", "elbo_rws", "moments")
+    for c in ("checkpoint", "no_checkpoint")])
+def test_compute_strategy(tp_name, oracle, compstrat):
+    """``tests/test_problem_vs_itself.py:179-221``: every strategy, the
+    model's ``Split`` among them, gives the same ELBO and moments."""
+    tp = zoo(tp_name)
+    cs = {"checkpoint": checkpoint, "no_checkpoint": no_checkpoint}[compstrat]
+    own = tp.computation_strategy
+    sample = tp.problem.sample(3, _gen(tp_name, 7, oracle), reparam=oracle == "elbo_vi",
+                               sampler=PermutationSampler)
+    close = lambda a, b: np.testing.assert_allclose(float(a), float(b), rtol=1e-5, atol=1e-6)
+    if oracle == "elbo_vi":
+        base = sample.elbo_vi(computation_strategy=no_checkpoint)
+        close(sample.elbo_vi(computation_strategy=cs), base)
+        close(sample.elbo_vi(computation_strategy=own), base)
+    elif oracle == "elbo_rws":
+        close(sample.elbo_rws(computation_strategy=cs),
+              sample.elbo_rws(computation_strategy=own))
+    else:
+        base = sample.marginals(computation_strategy=own)
+        test = sample.marginals(computation_strategy=cs)
+        for varnames, moment in tp.moments:
+            _allclose_dt(base.moments(varnames, moment), test.moments(varnames, moment))
