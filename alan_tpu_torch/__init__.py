@@ -38,6 +38,12 @@ layout.  The gold samplers ``mcmc.run_hmc``, ``nuts.run_nuts`` and
 ``smc.run_smc`` sample the P program's posterior (each HMC and NUTS
 iteration a CUDA graph on the card), and ``diagnostics`` reads their
 draws.
+
+``perf`` counts a step's model FLOPs and its share of the card's peak,
+``profiling`` traces and times steps, ``parallel`` shards a step over the
+ranks of a ``torch.distributed`` group (``MeshPlan``, DTensor layouts),
+and ``python -m alan_tpu_torch.runner`` is ``examples/runner.py``'s
+counterpart.
 """
 
 from .dims import DT, dt
@@ -55,6 +61,8 @@ from .moments import (RawMoment, CompoundMoment, mean, mean2, mean_log, mean_log
                       std_from_raw_moment)
 from .split import Split, checkpoint, no_checkpoint
 from . import train, convert, predict
+# subsystem modules (alan_tpu_torch.perf.mfu_report, .parallel.mesh.MeshPlan, ...)
+from . import perf, profiling, parallel  # noqa: E402
 
 # the user-facing constructor of every family (Normal, Beta, ...)
 from .ir.dist import _dist_calls as _dc
@@ -68,6 +76,6 @@ __all__ = [
     "ExtendedImportanceSample", "RawMoment", "CompoundMoment", "mean",
     "mean2", "mean_log", "mean_log1m", "mean_recip", "mean_xxT", "var",
     "cov_x", "var_from_raw_moment", "std_from_raw_moment", "Split", "checkpoint", "no_checkpoint",
-    "train", "convert", "predict",
+    "train", "convert", "predict", "perf", "profiling", "parallel",
     *list(_dc.keys()),
 ]

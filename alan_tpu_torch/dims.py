@@ -19,7 +19,7 @@ __all__ = [
     "check_unique_dims", "bind", "order", "detach", "expand_to", "align",
     "pos_op", "matmul", "elementwise", "sum_dims", "mean_dims", "prod_dims",
     "amax_dims", "amin_dims", "logsumexp_dims", "logmeanexp_dims", "sum_pos",
-    "dt_index", "slice_dim", "concat_dim", "rename_dim",
+    "dt_index", "slice_dim", "concat_dim", "rename_dim", "reshape", "settled",
 ]
 
 
@@ -265,14 +265,27 @@ def pos_op(f, *xs) -> DT:
     """Apply ``f`` to the positional blocks of the operands, vectorised over
     the union of named dims (for ops like ``matmul`` whose meaning depends
     on operand rank): the named dims are flattened to one batch axis and
-    ``f`` is mapped over it with ``torch.vmap``."""
+    ``f`` is mapped over it with ``torch.vmap``.  Sharded operands map over
+    their shards (``parallel.mesh.batch_local``)."""
     dts = [as_dt(x) for x in xs]
     if not any(x.dims for x in dts):
         return DT(f(*[x.data for x in dts]), ())
     arrs, union = align(*dts)
     sizes = [max(a.shape[i] for a in arrs) for i in range(len(union))]
-    flat = [torch.broadcast_to(a, tuple(sizes) + tuple(a.shape[len(union):]))
-            .reshape((-1,) + tuple(a.shape[len(union):])) for a in arrs]
+    full = [torch.broadcast_to(a, tuple(sizes) + tuple(a.shape[len(union):]))
+            for a in arrs]
+    from .parallel.mesh import batch_local, is_sharded
+    if any(is_sharded(a) for a in full):
+        # sharded operands (a MeshPlan): nested vmaps over the intact named
+        # axes of each shard; a reshape merging a sharded dim anywhere but
+        # majormost would gather it whole first
+        def g(*xs):
+            h = f
+            for _ in union:
+                h = torch.vmap(h)
+            return h(*xs)
+        return DT(batch_local(g, full, len(union)), union)
+    flat = [a.reshape((-1,) + tuple(a.shape[len(union):])) for a in full]
     out = torch.vmap(f)(*flat)
     return DT(out.reshape(tuple(sizes) + tuple(out.shape[1:])), union)
 
@@ -291,7 +304,14 @@ def matmul(a, b) -> DT:
     if a.pos_ndim == 1 and b.pos_ndim == 1:
         (x, y), union = align(a, b)
         dtype = torch.promote_types(x.dtype, y.dtype)     # as jnp.einsum
-        return DT(torch.einsum("...f,...f->...", x.to(dtype), y.to(dtype)), union)
+        x, y = x.to(dtype), y.to(dtype)
+        dot = lambda u, v: torch.einsum("...f,...f->...", u, v)
+        from .parallel.mesh import batch_local, is_sharded
+        if is_sharded(x) or is_sharded(y):
+            # einsum flattens the named dims into one, which a sharded dim
+            # that is not majormost cannot take: map it over the shards
+            return DT(batch_local(dot, [x, y], len(union)), union)
+        return DT(dot(x, y), union)
     return pos_op(torch.matmul, a, b)
 
 
@@ -319,6 +339,51 @@ def elementwise(f, *xs) -> DT:
 
 # -- reductions over named dims -----------------------------------------
 
+_DTENSOR = []
+
+
+def _dtensor_types():
+    """(DTensor, Replicate), imported at first use."""
+    if not _DTENSOR:
+        from torch.distributed.tensor import DTensor, Replicate
+        _DTENSOR.extend((DTensor, Replicate))
+    return _DTENSOR
+
+
+def reshape(t, shape):
+    """``t.reshape(shape)``.  A sharded ``DTensor`` first gathers each
+    sharded dim that the reshape merges anywhere but majormost in its
+    output dim (GSPMD's merge-gather, made explicit: DTensor refuses such
+    a view); a sharded dim that leads its group keeps its shard."""
+    DTensor, Replicate = _dtensor_types()
+    if not isinstance(t, DTensor):
+        return t.reshape(shape)
+    src = tuple(t.shape)
+    shape = list(shape)
+    if -1 in shape:
+        i = shape.index(-1)
+        shape[i] = math.prod(src) // math.prod(d for d in shape if d != -1)
+    starts = {math.prod(shape[:j]) for j in range(len(shape) + 1)}
+    pl = [Replicate() if p.is_shard() and src[p.dim] > 1
+          and math.prod(src[:p.dim]) not in starts else p for p in t.placements]
+    if pl != list(t.placements):
+        t = t.redistribute(t.device_mesh, pl)
+    return t.reshape(shape)
+
+
+def settled(t):
+    """``t`` with any partial placement of a sharded ``DTensor`` reduced at
+    once (an all-reduce of the reduction's result), as GSPMD reduces a
+    sharded reduction: a partial left for DTensor to settle later may be
+    reduce-scattered onto another dim, which the next op then gathers
+    whole.  Anything else as it is."""
+    DTensor, Replicate = _dtensor_types()
+    if isinstance(t, DTensor) and any(p.is_partial() for p in t.placements):
+        return t.redistribute(t.device_mesh, [Replicate() if p.is_partial() else p
+                                              for p in t.placements])
+    return t
+
+
 def _reduce(fn):
     def inner(x, ds, ignore_extra_dims: bool = False):
         x = as_dt(x)
@@ -334,7 +399,7 @@ def _reduce(fn):
             return x
         o = x.order(*ds)
         axes = tuple(range(len(o.dims), len(o.dims) + len(ds)))
-        return DT(fn(o.data, axes), o.dims)
+        return DT(settled(fn(o.data, axes)), o.dims)
     return inner
 
 
@@ -364,9 +429,9 @@ def logsumexp_dims(x, ds, ignore_extra_dims: bool = False) -> DT:
     o = x.order(*ds)
     axes = tuple(range(len(o.dims), len(o.dims) + len(ds)))
     a = o.data
-    a_max = torch.amax(a, dim=axes, keepdim=True).detach()
+    a_max = settled(torch.amax(a, dim=axes, keepdim=True).detach())
     a_max = torch.where(torch.isfinite(a_max), a_max, torch.zeros_like(a_max))
-    s = torch.sum(torch.exp(a - a_max), dim=axes)
+    s = settled(torch.sum(torch.exp(a - a_max), dim=axes))
     eps = torch.finfo(s.dtype).eps
     out = torch.log(s + eps) + a_max.reshape(s.shape)
     return DT(out, o.dims)

@@ -1,11 +1,11 @@
-"""The log P/Q evaluator (counterpart of ``alan_tpu/logpq.py`` without its
-mesh branches).
+"""The log P/Q evaluator (counterpart of ``alan_tpu/logpq.py``).
 
 A recursive walk over the (P, Q) plate trees gathers per-group log-factors
 ``log P - reduce_logQ(log Q) - log K`` (each carrying its K-dims and plate
 dims), contracts the K-dims with the planned log-space engine
 (``reduce_ks.py``), sums plates, and chains timeseries factors over their
-plate's dim T with log-space matmuls (``ops/logmmexp.py``).
+plate's dim T with log-space matmuls (``ops/logmmexp.py``; T-sharded under
+a ``MeshPlan`` that maps T to a mesh axis, ``parallel/seq.py``).
 
 The computation strategy (``split.py``) chunks one plate: the chunks run
 one after another, a Python loop (``alan_tpu`` runs equal chunks through
@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
-from .dims import DT, as_dt, bind, sum_dims
+from .dims import DT, as_dt, bind, reshape, sum_dims
 from .ir.plate import Plate, update_scope
 from .ir.dist import Dist, datagroup
 from .ir.data import Data
@@ -183,13 +183,49 @@ def _chain_ts(lp, name, K_inits, K_currs):
     shp = o.data.shape
     ki_sizes = tuple(shp[nrem + 1: nrem + 1 + n])
     k_sizes = tuple(shp[nrem + 1 + n:])
-    joint = o.data.reshape(tuple(shp[:nrem]) + (shp[nrem], math.prod(ki_sizes),
-                                                math.prod(k_sizes)))
-    chained = chain_logmmexp(joint)             # (*hi, prod Ki, prod K)
+    joint = reshape(o.data, tuple(shp[:nrem]) + (shp[nrem], math.prod(ki_sizes),
+                                                 math.prod(k_sizes)))
+    joint = _constrain_chain_operand(joint, o.dims, name)
+    chained = _chain(joint, name)               # (*hi, prod Ki, prod K)
     maxv = torch.amax(chained, dim=-1).detach()
     summed = torch.log(torch.sum(torch.exp(chained - maxv[..., None]), dim=-1))
-    out = (summed + maxv).reshape(tuple(shp[:nrem]) + ki_sizes)
+    out = reshape(summed + maxv, tuple(shp[:nrem]) + ki_sizes)
     return bind(DT(out, o.dims), *K_inits)
+
+
+def _constrain_chain_operand(joint, hi_dims, platename):
+    """Under a MeshPlan, lay the chain operator out before the log-matmul
+    tree (``alan_tpu``'s ``logpq.py:293-321``): the plate (hi) dims keep
+    their planned mesh axes, the T dim its sequence axis if T is planned,
+    and the Ki / K axes are replicated, gathered once here instead of at
+    every level of the tree."""
+    from .parallel.mesh import active_plan
+    plan = active_plan()
+    if plan is None:
+        return joint
+    pl = plan.placements((*hi_dims, platename), tuple(joint.shape), warn=False)
+    return plan.shard(joint, pl)
+
+
+def _chain(ms, platename):
+    """Chain-contract ``ms[..., T, Ki, K]`` over T: under a MeshPlan that
+    maps the timeseries plate to a mesh axis, the T-sharded chain
+    (``parallel/seq.py``, counted as the single-rank chain); otherwise
+    ``chain_logmmexp``."""
+    from .parallel.mesh import active_plan
+    plan = active_plan()
+    if plan is not None:
+        axis = plan._axis_for(platename)
+        if axis is not None:
+            T = ms.shape[-3]
+            n = plan.axis_size(axis)
+            if T % n == 0:
+                from .ops.logmmexp import count_chain
+                from .parallel.seq import chain_logmmexp_sharded
+                count_chain(ms.shape)
+                return chain_logmmexp_sharded(ms, plan.mesh, axis)
+            plan._undividable(platename, T, axis, n)
+    return chain_logmmexp(ms)
 
 
 def logPQ_gdt(*, name, P, Q, sample, data, scope, active_platedims,

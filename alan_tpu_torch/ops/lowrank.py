@@ -48,8 +48,9 @@ import os
 
 import torch
 
+from .. import perf
 from ..dims import (DT, as_dt, unify_dims, expand_to, dimsizes_of, logsumexp_dims,
-                    elementwise as ew)
+                    reshape, elementwise as ew)
 from .lowrank_kernel import lowrank_logsumexp
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -153,12 +154,24 @@ def _factored(family_name, x, params, x_only):
     raise KeyError(family_name)
 
 
+def _shard_major(shared):
+    """The shared (batch) dims with mesh-mapped ones first: they are
+    reshape-merged into one flat batch axis, which keeps a dim's sharding
+    only when that dim is majormost (``alan_tpu``'s ``lowrank.py:205-216``)."""
+    from ..parallel.mesh import active_plan
+    shared = tuple(shared)
+    plan = active_plan()
+    if plan is not None and len(shared) > 1:
+        shared = tuple(sorted(shared, key=lambda d: plan._axis_for(d) is None))
+    return shared
+
+
 def _split_dims(x, pvals):
     arg_dims = tuple(unify_dims(pvals.values()))
     union = tuple(unify_dims([x, *pvals.values()]))
     x_only = tuple(d for d in x.dims if d not in arg_dims)
     p_only = tuple(d for d in arg_dims if d not in x.dims)
-    shared = tuple(d for d in union if d not in x_only and d not in p_only)
+    shared = _shard_major(d for d in union if d not in x_only and d not in p_only)
     sizes = dimsizes_of(x, *pvals.values())
     pos = tuple(torch.broadcast_shapes(x.pos_shape,
                                        *[v.pos_shape for v in pvals.values()]))
@@ -194,11 +207,12 @@ def _dense_product(U: DT, V: DT, shared, x_dims, p_dims, sizes) -> DT:
     S = math.prod(sizes[d] for d in shared)
     X = math.prod(sizes[d] for d in x_dims)
     P = math.prod(sizes[d] for d in p_dims)
-    u = U.with_dims_front(list(shared + x_dims)).data.reshape(S, X, -1)
-    v = V.with_dims_front(list(shared + p_dims)).data.reshape(S, P, -1)
+    u = reshape(U.with_dims_front(list(shared + x_dims)).data, (S, X, -1))
+    v = reshape(V.with_dims_front(list(shared + p_dims)).data, (S, P, -1))
+    perf.count_flops(matmul=2.0 * S * X * P * u.shape[-1])
     out = torch.matmul(u, v.transpose(1, 2))
     out_dims = tuple(shared) + tuple(x_dims) + tuple(p_dims)
-    return DT(out.reshape(tuple(sizes[d] for d in out_dims)), out_dims)
+    return DT(reshape(out, tuple(sizes[d] for d in out_dims)), out_dims)
 
 
 def lowrank_logprob(family_name, x, params) -> DT:
@@ -371,25 +385,30 @@ class LowRankDT:
         F = self.U.pos_shape[-1]
 
         u_order = list(self.shared) + kept_x + red_x
-        U4 = (self.U.with_dims_front(u_order).data
-              .reshape(S, P, I, F).to(torch.float32).contiguous())
-        V3 = (self.V.with_dims_front(list(self.shared + self.p_dims)).data
-              .reshape(S, J, F).to(torch.float32).contiguous())
+        U4 = reshape(self.U.with_dims_front(u_order).data,
+                     (S, P, I, F)).to(torch.float32).contiguous()
+        V3 = reshape(self.V.with_dims_front(list(self.shared + self.p_dims)).data,
+                     (S, J, F)).to(torch.float32).contiguous()
         if x_terms:
             d_total = x_terms[0]
             for t in x_terms[1:]:
                 d_total = d_total + t
-            D3 = torch.broadcast_to(
+            D3 = reshape(torch.broadcast_to(
                 expand_to(d_total, u_order),
-                tuple(sizes[d] for d in u_order)).reshape(S, P, I)
+                tuple(sizes[d] for d in u_order)), (S, P, I))
             D3 = D3.to(torch.float32).contiguous()
         else:
             D3 = torch.zeros((S, P, I), dtype=torch.float32, device=U4.device)
 
         CONTRACT_CALLS += 1
-        out = lowrank_logsumexp(U4, V3, D3)
+        perf.count_flops(matmul=2.0 * S * P * I * J * F, elementwise=4.0 * S * P * I * J)
+        from ..parallel.mesh import batch_local, is_sharded
+        if any(is_sharded(t) for t in (U4, V3, D3)):
+            out = batch_local(lowrank_logsumexp, [U4, V3, D3], 1)
+        else:
+            out = lowrank_logsumexp(U4, V3, D3)
         out_dims = tuple(self.shared) + tuple(kept_x) + self.p_dims
-        res = DT(out.reshape(tuple(sizes[d] for d in out_dims)), out_dims)
+        res = DT(reshape(out, tuple(sizes[d] for d in out_dims)), out_dims)
         for t in p_terms:
             res = res + t
         if red_p:

@@ -25,6 +25,7 @@ import os
 
 import torch
 
+from . import perf
 from .dims import (DT, as_dt, bind, concat_dim, dims_of, dt_index, expand_to,
                    logsumexp_dims, slice_dim, unify_dims, check_unique_dims)
 
@@ -96,6 +97,10 @@ def logsumexp_sum(Ks_to_sum, *lps) -> DT:
     total = lps[0]
     for lp in lps[1:]:
         total = total + lp
+    if perf.counting_active():
+        # broadcast-add route: (n-1) adds over the joint space, then a
+        # ~4-op/element logsumexp (max/sub/exp/add) over the reduced dims
+        perf.count_flops(elementwise=(len(lps) + 3.0) * as_dt(total).data.numel())
     return logsumexp_dims(total, tuple(Ks_to_sum), ignore_extra_dims=True)
 
 

@@ -69,13 +69,24 @@ class Sample:
         extra_log_factors = {f"__elf_{i}": sum_pos(v)
                              for i, v in enumerate((extra_log_factors or {}).values())}
         extra_log_factors = tensordict2tree(self.P.plate, extra_log_factors)
+        # under a MeshPlan the inputs, parameters and data are laid out as
+        # well as the particles: one left plain meets the sharded factors
+        # replicated, and a plate-sharded product with it is formed whole
+        # (``alan_tpu``'s ``sample.py:61-72``)
+        from .parallel.mesh import active_plan
+        plan = active_plan()
+        inputs_params = self.problem.inputs_params(*self._states)
+        data = self.problem.data
+        if plan is not None:
+            inputs_params = plan.constrain_tree(inputs_params)
+            data = plan.constrain_tree(data)
         lp = logPQ_plate(
             name=None,
             P=self.P.plate,
             Q=self.Q.plate,
             sample=sample,
-            inputs_params=self.problem.inputs_params(*self._states),
-            data=self.problem.data,
+            inputs_params=inputs_params,
+            data=data,
             extra_log_factors=extra_log_factors,
             scope={},
             active_platedims=[],

@@ -25,6 +25,11 @@ steps on the non-MP ELBO of K joint particles (``sample_nonmp.py``).
 independent loops: on the card as CUDA graphs, captured once and replayed
 with no host dispatch, on the CPU as the eager loop, with the same draws.
 
+``elbo_fn``, ``vi``, ``rws`` and ``qem`` take ``mesh_plan=`` (a
+``parallel.mesh.MeshPlan``, ``alan_tpu/train.py:33-47``): the step runs
+under the plan, its particles laid out by it, and returns its state and
+ELBO whole.  The global-K methods refuse a plan.
+
 The parity tests give both packages the same draws: ``qem`` and ``rws``
 steps take a ready-made particle tree (``step(state, sample=tree)``), and a
 ``vi`` step takes the standard noise of each reparameterised draw
@@ -33,6 +38,7 @@ autograd.
 """
 from __future__ import annotations
 
+import contextlib
 import re
 import time
 import warnings
@@ -40,6 +46,7 @@ import warnings
 import torch
 
 from .dims import DT
+from .parallel.mesh import full
 from .sample import Sample
 from .sampler import IndependentSampler, PermutationSampler
 from .split import no_checkpoint
@@ -73,19 +80,51 @@ def _draws(problem, K, reparam, sampler, stateQ, generator, sample, noise):
                              generator, state=stateQ, noise=noise)
 
 
+def _plan_active(mesh_plan):
+    """Run under the plan, so the engine routes e.g. the timeseries chain
+    to its T-sharded implementation."""
+    return mesh_plan.active() if mesh_plan is not None else contextlib.nullcontext()
+
+
+def _constrained(tree, mesh_plan):
+    """The particle tree laid out by the plan: each rank keeps its shard of
+    the draws every rank made alike (``alan_tpu``'s ``_make_sample``)."""
+    return tree if mesh_plan is None else mesh_plan.constrain_tree(tree)
+
+
+def _planned(step, mesh_plan):
+    """``step`` run under ``mesh_plan``, its new state and ELBO returned
+    whole (plain tensors, the same on every rank), so that the next step
+    draws from a plain state as the unsharded step does.
+    ``step.mesh_plan`` names the plan."""
+    if mesh_plan is None:
+        return step
+
+    def planned(state, *args, **kwargs):
+        with mesh_plan.active():
+            return full(step(state, *args, **kwargs))
+    planned.mesh_plan = mesh_plan
+    return planned
+
+
 def elbo_fn(problem, K, reparam=True, sampler=PermutationSampler,
-            computation_strategy=no_checkpoint):
+            computation_strategy=no_checkpoint, mesh_plan=None):
     """``f(stateP, stateQ, generator=None, sample=None, noise=None) ->
     elbo``: draw K particles per latent from Q at ``stateQ`` and evaluate
     the ELBO at ``(stateP, stateQ)``, differentiable in the opt params.
     The draws come from ``generator``, ``sample`` or ``noise``
-    (``_draws``)."""
+    (``_draws``).  With a ``MeshPlan`` the particles, inputs and data are
+    laid out by it and the engine runs sharded; the ELBO comes back
+    whole."""
     def f(stateP, stateQ, generator=None, sample=None, noise=None):
-        sample, gv2K = _draws(problem, K, reparam, sampler, stateQ, generator,
-                              sample, noise)
-        s = Sample(problem, sample, gv2K, sampler, reparam, states=(stateP, stateQ))
-        return s.elbo_vi(computation_strategy) if reparam else \
-            s.elbo_rws(computation_strategy)
+        with _plan_active(mesh_plan):
+            sample, gv2K = _draws(problem, K, reparam, sampler, stateQ, generator,
+                                  sample, noise)
+            sample = _constrained(sample, mesh_plan)
+            s = Sample(problem, sample, gv2K, sampler, reparam, states=(stateP, stateQ))
+            elbo = s.elbo_vi(computation_strategy) if reparam else \
+                s.elbo_rws(computation_strategy)
+            return full(elbo)
     return f
 
 
@@ -152,7 +191,7 @@ def _initial_opt_state(opt):
     return opt.state_dict()
 
 
-def _gradient_factory(problem, f, lr, optimizer, device, signs):
+def _gradient_factory(problem, f, lr, optimizer, device, signs, mesh_plan=None):
     """``(step, state0)`` of a gradient method on the ELBO
     ``f(stateP, stateQ, generator, **draws)``: ``signs(nP, grads)`` turns
     its gradients into the ones the optimizer descends.  The default
@@ -171,7 +210,7 @@ def _gradient_factory(problem, f, lr, optimizer, device, signs):
         elbo = f(sP, sQ, generator, **draws)
         grads = (torch.autograd.grad(elbo, leaves, allow_unused=True)
                  if leaves and elbo.requires_grad else [None] * len(leaves))
-        grads = signs(len(stateP["opt"]), grads)
+        grads = signs(len(stateP["opt"]), full(list(grads)))
         newP, newQ, opt_state = _optimizer_step(optimizer, opt_state, leaves,
                                                 grads, stateP, stateQ)
         return (newP, newQ, opt_state), elbo.detach()
@@ -179,7 +218,7 @@ def _gradient_factory(problem, f, lr, optimizer, device, signs):
     stateP, stateQ = problem.P.state(), problem.Q.state()
     leaves, _, _ = opt_leaves(stateP, stateQ)
     opt_state = _initial_opt_state(optimizer(leaves)) if leaves else None
-    return step, (stateP, stateQ, opt_state)
+    return _planned(step, mesh_plan), (stateP, stateQ, opt_state)
 
 
 def _neg(g):
@@ -197,25 +236,27 @@ def _wake_sleep(nP, grads):
 
 
 def vi(problem, K: int, lr=0.01, optimizer=None, sampler=PermutationSampler,
-       computation_strategy=no_checkpoint, device="cuda"):
+       computation_strategy=no_checkpoint, device="cuda", mesh_plan=None):
     """Reparameterised-VI step factory: every opt param ascends the ELBO.
     ``optimizer`` maps a list of leaf tensors to a ``torch.optim``
     optimizer (default ``torch.optim.Adam(params, lr=lr)``).
-    ``step(state, generator)`` or ``step(state, noise=tree)``."""
+    ``step(state, generator)`` or ``step(state, noise=tree)``.  With a
+    ``MeshPlan`` the step runs sharded (``parallel/mesh.py``)."""
     return _gradient_factory(
-        problem, elbo_fn(problem, K, True, sampler, computation_strategy), lr,
-        optimizer, device, _ascend_all)
+        problem, elbo_fn(problem, K, True, sampler, computation_strategy, mesh_plan),
+        lr, optimizer, device, _ascend_all, mesh_plan)
 
 
 def rws(problem, K: int, lr=0.01, optimizer=None, sampler=PermutationSampler,
-        computation_strategy=no_checkpoint, device="cuda"):
+        computation_strategy=no_checkpoint, device="cuda", mesh_plan=None):
     """Reweighted-wake-sleep step factory: P's opt params ascend the ELBO
     and Q's descend it (the reference's ``maximize=True`` Adam on P and
     ``maximize=False`` on Q).  ``step(state, generator)`` or
-    ``step(state, sample=tree)``."""
+    ``step(state, sample=tree)``.  With a ``MeshPlan`` the step runs
+    sharded."""
     return _gradient_factory(
-        problem, elbo_fn(problem, K, False, sampler, computation_strategy), lr,
-        optimizer, device, _wake_sleep)
+        problem, elbo_fn(problem, K, False, sampler, computation_strategy, mesh_plan),
+        lr, optimizer, device, _wake_sleep, mesh_plan)
 
 
 def _schedule(lr):
@@ -245,12 +286,14 @@ def _schedule(lr):
 
 
 def qem(problem, K: int, lr=0.1, sampler=PermutationSampler,
-        computation_strategy=no_checkpoint, device="cuda"):
+        computation_strategy=no_checkpoint, device="cuda", mesh_plan=None):
     """QEM step factory.  ``lr`` is a float, a callable ``t -> lr_t`` or a
     schedule string (see ``_schedule``); with a schedule the state is
     ``((stateP, stateQ), t)``, ``t`` a 0-d float32 tensor on the problem's
     device (as ``alan_tpu``'s), so that a captured step reads the iteration
-    from the card.  ``device`` must be the problem's device."""
+    from the card.  ``device`` must be the problem's device.  With a
+    ``MeshPlan`` the step runs sharded; its state and ELBO come back
+    whole."""
     device = _on_device(problem, device)
     schedule = _schedule(lr)
 
@@ -270,6 +313,7 @@ def qem(problem, K: int, lr=0.1, sampler=PermutationSampler,
                                              state=stateQ)
         else:
             gv2K = problem.Q.plate.groupvarname2Kdim(K)
+        sample = _constrained(sample, mesh_plan)
         s = Sample(problem, sample, gv2K, sampler, False, states=(stateP, stateQ))
         rmP = problem.P.qem_flat_list_rmkeys
         rmQ = problem.Q.qem_flat_list_rmkeys
@@ -292,7 +336,7 @@ def qem(problem, K: int, lr=0.1, sampler=PermutationSampler,
     state0 = (problem.P.state(), problem.Q.state())
     if schedule is not None:
         state0 = (state0, torch.zeros((), dtype=torch.float32, device=device))
-    return step, state0
+    return _planned(step, mesh_plan), state0
 
 
 # ---- the non-MP global-K baselines -------------------------------------------
@@ -320,23 +364,32 @@ def global_elbo_fn(problem, K, reparam=True):
     return f
 
 
-def global_vi(problem, K: int, lr=0.01, optimizer=None, device="cuda"):
+def _no_plan(mesh_plan, method):
+    if mesh_plan is not None:
+        raise ValueError(f"{method} takes no MeshPlan: the global-K baselines "
+                         "run unsharded")
+
+
+def global_vi(problem, K: int, lr=0.01, optimizer=None, device="cuda", mesh_plan=None):
     """VI on the global-K ELBO: ``vi``'s step and state, one K-dim."""
+    _no_plan(mesh_plan, "global_vi")
     return _gradient_factory(problem, global_elbo_fn(problem, K, True), lr,
                              optimizer, device, _ascend_all)
 
 
-def global_rws(problem, K: int, lr=0.01, optimizer=None, device="cuda"):
+def global_rws(problem, K: int, lr=0.01, optimizer=None, device="cuda", mesh_plan=None):
     """RWS on the global-K ELBO: ``rws``'s step and state, one K-dim."""
+    _no_plan(mesh_plan, "global_rws")
     return _gradient_factory(problem, global_elbo_fn(problem, K, False), lr,
                              optimizer, device, _wake_sleep)
 
 
-def global_qem(problem, K: int, lr=0.1, device="cuda"):
+def global_qem(problem, K: int, lr=0.1, device="cuda", mesh_plan=None):
     """QEM on the global-K importance weights: the moments are the
     self-normalised weights' averages over the K joint particles
     (``SampleNonMP.moments``), ``lr`` a float.  ``step(state, generator)``
     or ``step(state, sample=tree)``."""
+    _no_plan(mesh_plan, "global_qem")
     device = _on_device(problem, device)
 
     def step(state, generator=None, sample=None):
@@ -484,6 +537,7 @@ class _Scan:
     def __call__(self, state, generator):
         if generator.device.type != "cuda":
             return _eager(self.step, self.n_steps, state, generator)
+        _refuse_planned(self.step)
         entry = self._start(state, generator)
         return self._finish(entry)
 
@@ -532,6 +586,14 @@ class _Scan:
         return _unflatten(spec, [x.clone() for x in last.static]), elbos.clone()
 
 
+def _refuse_planned(step):
+    if getattr(step, "mesh_plan", None) is not None:
+        raise ValueError(
+            "scan_steps / vmap_runs do not capture a planned step (a MeshPlan's "
+            "collectives inside a CUDA graph are not supported yet): run it "
+            "eagerly, one step a call")
+
+
 def scan_steps(step, n_steps: int, unroll: int | None = None):
     """``n_steps`` training steps as one replayed loop (counterpart of
     ``alan_tpu/train.py:316-350``): ``step(state, generator) -> (state,
@@ -550,7 +612,8 @@ def scan_steps(step, n_steps: int, unroll: int | None = None):
     state, so a second call replays without capturing
     (``run.capture_seconds`` says how long the last call captured).  A
     capture that fails raises: there is no fallback to the eager loop.
-    On the CPU, ``run`` is that eager loop."""
+    On the CPU, ``run`` is that eager loop.  A planned step (``mesh_plan=``)
+    is refused on the card."""
     return _Scan(step, n_steps, 1 if unroll is None else unroll)
 
 
@@ -588,6 +651,8 @@ class _Runs:
                              "tensors, and this state has none")
         device = leaves[0].device
         gens = [run_generator(seed, r, device) for r in range(len(self.runs))]
+        if device.type == "cuda":
+            _refuse_planned(self.runs[0].step)
         if device.type != "cuda":
             outs = [run(state0, g) for run, g in zip(self.runs, gens)]
         else:

@@ -317,6 +317,38 @@ without its final line:
                 (Adam's state) under ``scan_steps``: 10 steps bitwise 5, a
                 save (state and generator), a load into a fresh problem and
                 5 more; the file loaded on the host and back, bitwise.
+38. perf_report -- ``perf.mfu_report`` of five paths' eager steps
+                (the K=30 headline's QEM, grouped MovieLens K=1000 QEM and
+                VI, covid QEM K=30, AR(1)'s ELBO at K=1000) at the ms a
+                step of their captured loops by the slope rule (phases 20,
+                21, 24, 25): analytic FLOPs a step (matmul and elementwise
+                apart), ``FlopCounterMode``'s, ``mfu`` against the TF32
+                peak and the float32 share, the card's name and power
+                limit; gates: each analytic count equals the host's plain
+                route's on the same problem (a process of its own, started
+                after the build, with the card's matmul threshold), and
+                ``mfu`` <= 1;
+39. profiling_trace -- ``profiling.trace`` around 3 eager covid QEM steps
+                (its file names both small-K chain kernels),
+                ``timed_steps`` over 5 (5 positive times),
+                ``device_memory_stats()``'s peak equal to
+                ``max_memory_allocated()``;
+40. mesh_single_card -- ``train`` steps under a ``MeshPlan`` at world size
+                1 (NCCL, a TCP store on 127.0.0.1; DTensor layouts, the
+                kernels through ``local_map``): grouped MovieLens K=1000
+                QEM and VI under ``{"plate_1": "p"}`` + all K, covid K=30
+                QEM under ``{"nRs": "p"}`` + all K and under ``{"nDs":
+                "t"}`` (the chain through ``parallel/seq.py``), AR(1)'s
+                ELBO at K=1000 under ``{"T": "t"}``; gates: ELBO and state
+                bitwise or within 1e-6 relative of the unsharded step's
+                from one generator seed, each path's kernels launched under
+                the plan, the T-sharded chain taken; the collective
+                inventory, eager and busy ms beside the unsharded step's;
+41. runner_cli -- ``python -m alan_tpu_torch.runner`` as a subprocess:
+                covid QEM K=30, 5 iterations; the same with ``--split nRs
+                23``; under ``torchrun --nproc-per-node 1`` with ``--mesh
+                p=1 --shard nRs=p``: exit 0, finite ELBOs, the first
+                ELBO the train API's from the same seed.
 
 ``--only PHASE,...`` runs the build and the named phases of 32-37 alone (a
 rehearsal: no kernels line, no final line).
@@ -331,7 +363,8 @@ the QEM paths', the factored families' lowrank launches and ms,
 covid_reparam's chain launches (``canonical_launches``),
 ``graph_launches``: each captured path's launches per replay and its
 replays, and ``strategy_launches``: phases 32-34's launches a step under
-each strategy), the card's name and power limit as nvidia-smi prints them, and
+each strategy; ``mesh_launches``: phase 40's launches under a plan), the
+card's name and power limit as nvidia-smi prints them, and
 ``{"ok": true, "device": {...}}`` last.
 """
 import json
@@ -2862,6 +2895,7 @@ def _scan_phase(phase, step, state0, n_short, n_long, must_launch, info,
         ok = gate(fields, st_g) and ok
     run_l = train.scan_steps(step, n_long)
     ms, slopes, capture_long = _slope_ms(run_s, run_l, state0)
+    SLOPE_MS[phase] = ms
     prof = _profile_run(phase, run_s, state0, ms, must_launch)
     res = {"phase": phase, **info, "ms_per_step": ms, "slopes_ms": slopes,
            "capture_s": fields.pop("capture_s"),
@@ -4495,6 +4529,363 @@ def phase_checkpoint_resume():
     emit({"phase": phase, **checks, "ok": ok})
 
 
+# ---- phases 38-41: perf, profiling, the mesh plan, the runner ------------------
+
+#: ms/step of each captured path by the slope rule (``_scan_phase``), which
+#: ``perf_report`` divides the analytic FLOPs by
+SLOPE_MS = {}
+
+
+def _perf_paths(device):
+    """name -> (path whose slope-rule ms it takes, one-step call, grad): the
+    five paths of ``perf_report``, built on ``device`` from the same seeds."""
+    from alan_tpu_torch import train
+    from alan_tpu_torch.models import ar1, covid
+    from alan_tpu_torch.models import movielens as ml
+    from alan_tpu_torch.utils import seeded_generator
+
+    def call(step, state):
+        return lambda: step(state, seeded_generator(5, device))
+
+    ps, data, cov = ml.load_data_covariates(seed=0, M=ml.M, N=ml.N, device=device)
+    cps, _, cdata, _, ccov, _ = covid.load_data_covariates(seed=0, device=device)
+    ar = ar1.generate_problem(device)
+    f = train.elbo_fn(ar, K_AR1, reparam=False)
+    return {
+        "headline_qem_k30": ("scan_headline_k30", call(*train.qem(
+            ml.generate_problem(ps, data, cov, device=device), K_HEADLINE, lr=LR_QEM,
+            device=device)), True),
+        "grouped_qem_k1000": ("scan_grouped_k1000_qem", call(*train.qem(
+            ml.grouped_problem(ps, data, cov, device=device), K_MAIN, lr=LR_QEM,
+            device=device)), True),
+        "grouped_vi_k1000": ("scan_grouped_k1000_vi", call(*train.vi(
+            ml.grouped_problem(ps, data, cov, "opt", device=device), K_MAIN, lr=0.01,
+            device=device)), True),
+        "covid_qem_k30": ("scan_covid_k30", call(*train.qem(
+            covid.generate_problem(cps, cdata, ccov, "qem", device=device), K_COVID,
+            lr=LR_QEM, device=device)), True),
+        "ar1_elbo_k1000": ("scan_ar1_k1000", lambda: f(
+            ar.P.state(), ar.Q.state(), seeded_generator(5, device)).detach(), False),
+    }
+
+
+def host_counts():
+    """The analytic FLOPs of ``_perf_paths`` on the host's plain route, one
+    JSON line: run by ``perf_report`` in a process of its own, with the
+    card's matmul threshold (``ALAN_TPU_MATMUL_MIN_K=8``, ``reduce_ks``'s
+    default for CUDA tensors) so the host takes the card's routes.  The
+    plain joint-shift repair, which no hook counts, is off: on covid it
+    would take the host minutes (93% of the chain's entries)."""
+    import torch
+    from alan_tpu_torch import perf
+    from alan_tpu_torch.ops import logmmexp_kernel
+    logmmexp_kernel.JOINT_BELOW = 0.0
+    torch.set_num_threads(3)
+    out = {}
+    for name, (_, fn, grad) in _perf_paths("cpu").items():
+        out[name] = perf.analytic_flops(fn, (), grad=grad)
+    print(json.dumps(out), flush=True)
+
+
+def _start_host_counts():
+    """Start ``host_counts`` in a process of its own (killed at exit if the
+    script ends before ``perf_report`` reads it)."""
+    import atexit
+    env = dict(os.environ, ALAN_TPU_MATMUL_MIN_K="8", CUDA_VISIBLE_DEVICES="")
+    p = subprocess.Popen([sys.executable, "-c", "import chip_smoke; chip_smoke.host_counts()"],
+                         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+    atexit.register(lambda: p.poll() is None and p.kill())
+    return p
+
+
+def phase_perf_report(host):
+    """``perf.mfu_report`` of each path's eager step at its captured loop's
+    ms by the slope rule: analytic FLOPs a step (matmul and elementwise
+    apart), ``FlopCounterMode``'s, ``mfu`` against TF32 and the float32
+    share.  Gates: each analytic count equals the host's plain route's on
+    the same problem exactly (``host``, the process ``_start_host_counts``
+    started), and ``mfu`` <= 1 for both counts."""
+    from alan_tpu_torch import perf
+    phase = "perf_report"
+    t0 = time.perf_counter()
+    out, err = host.communicate(timeout=900)
+    host_wait = time.perf_counter() - t0
+    if host.returncode != 0:
+        fail(phase, f"the host's count failed: {err[-2000:]}")
+        return
+    want = json.loads(out.strip().splitlines()[-1])
+    rows, ok = {}, True
+    for name, (slope_of, fn, grad) in _perf_paths("cuda").items():
+        ms = SLOPE_MS.get(slope_of)
+        if ms is None or not ms > 0:
+            fail(phase, f"no slope-rule ms for {name} ({slope_of})")
+            ok = False
+            continue
+        rep = perf.mfu_report(fn, (), ms / 1e3, device="cuda", grad=grad)
+        same = all(rep[k] == want[name][v] for k, v in (
+            ("flops_per_step_analytic", "flops"),
+            ("matmul_flops_per_step_analytic", "matmul_flops"),
+            ("elementwise_flops_per_step_analytic", "elementwise_flops")))
+        under = rep["flops_per_step_analytic"] > 0 and all(
+            rep[k] is not None and rep[k] <= 1 for k in ("mfu", "mfu_analytic"))
+        rows[name] = {"ms_per_step": ms, "of": slope_of, "host_analytic": want[name],
+                      "equals_host": same, **rep}
+        if not same:
+            ok = False
+            fail(phase, f"{name}: card count {rep['flops_per_step_analytic']} != host "
+                        f"{want[name]['flops']}")
+        if not under:
+            ok = False
+            fail(phase, f"{name}: mfu {rep['mfu']} / {rep['mfu_analytic']} not in (0, 1]")
+    emit({"phase": phase, "host_wait_s": host_wait, "paths": rows, "ok": ok})
+    return rows
+
+
+def phase_profiling_trace():
+    """``profiling.trace`` around 3 eager covid steps (the trace file names
+    the small-K chain kernels), ``timed_steps`` over 5 more (5 positive
+    times) and ``device_memory_stats`` (its peak is
+    ``max_memory_allocated``)."""
+    import shutil
+    import tempfile
+    import torch
+    from alan_tpu_torch import profiling, train
+    from alan_tpu_torch.models import covid
+    from alan_tpu_torch.utils import seeded_generator
+    phase = "profiling_trace"
+    ps, _, data, _, cov, _ = covid.load_data_covariates(seed=0, device="cuda")
+    step, state = train.qem(covid.generate_problem(ps, data, cov, "qem", device="cuda"),
+                            K_COVID, lr=LR_QEM)
+    gen = seeded_generator(2, "cuda")
+    state, _ = step(state, gen)                  # warm-up
+    torch.cuda.synchronize()
+    logdir = tempfile.mkdtemp(prefix="alan_trace_")
+    try:
+        t0 = time.perf_counter()
+        with profiling.trace(logdir):
+            for _ in range(3):
+                state, _ = step(state, gen)
+        trace_s = time.perf_counter() - t0
+        path = os.path.join(logdir, "trace.json")
+        size = os.path.getsize(path) if os.path.exists(path) else 0
+        names = set()
+        if size:
+            with open(path) as fh:
+                names = {e.get("name", "") for e in json.load(fh).get("traceEvents", [])}
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    chain = {k: sum(1 for n in names if k in n)
+             for k in ("segment_fwd_kernel", "segment_bwd_kernel")}
+    torch.cuda.reset_peak_memory_stats()
+    state, outs, times = profiling.timed_steps(step, state, [gen] * 5)
+    stats = profiling.device_memory_stats()
+    peak = (stats.get("cuda:0") or {}).get("allocated_bytes.all.peak")
+    res = {"phase": phase, "trace_bytes": size, "trace_s_3_steps": trace_s,
+           "trace_chain_kernel_names": chain, "iter_times_s": times,
+           "elbos": [float(e) for e in outs], "peak_bytes_stats": peak,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(), "ok": True}
+    if not size or not all(chain.values()):
+        res["ok"] = False
+        fail(phase, f"trace of {size} bytes, chain kernels named {chain}")
+    if len(times) != 5 or not all(t > 0 for t in times) or not _finite(res["elbos"]):
+        res["ok"] = False
+        fail(phase, f"timed_steps gave {times}, ELBOs {res['elbos']}")
+    if peak != res["max_memory_allocated"]:
+        res["ok"] = False
+        fail(phase, f"memory stats peak {peak} != max_memory_allocated")
+    emit(res)
+
+
+def _planned_case(plan, name, make, must_launch, seq_route):
+    """One path under ``plan`` against the same step unplanned, from one
+    generator seed and state: ELBO and state bitwise or within 1e-6
+    relative, every kernel of ``must_launch`` launched under the plan,
+    the T-sharded chain taken where ``seq_route``; eager ms of 3 steps,
+    busy ms of a profile of 2, the collective inventory of one step."""
+    import torch
+    from alan_tpu_torch import train
+    from alan_tpu_torch.parallel import collective_audit, seq
+    from alan_tpu_torch.utils import seeded_generator
+    plain_step, state0 = make(None)
+    planned_step, _ = make(plan)
+    out = {}
+    for key, step in (("unsharded", plain_step), ("planned", planned_step)):
+        step(state0, seeded_generator(1, "cuda"))              # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        calls0 = seq.CALLS
+        state, elbo = step(state0, seeded_generator(3, "cuda"))
+        torch.cuda.synchronize()
+        launches, seq_calls = read_counts(), seq.CALLS - calls0
+        t0 = time.perf_counter()
+        st = state0
+        for i in range(3):
+            st, _ = step(st, seeded_generator(10 + i, "cuda"))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        prof = _profile_step(f"mesh_single_card_{name}_{key}", step, state0,
+                             seeded_generator(4, "cuda"), ms)
+        out[key] = {"state": state, "elbo": elbo, "launches": launches,
+                    "seq_calls": seq_calls, "eager_ms": ms,
+                    "busy_ms": prof["device_busy_ms"] / prof["steps"]}
+    inv = collective_audit.collective_inventory(
+        lambda: planned_step(state0, seeded_generator(3, "cuda")))
+    a, b = out["planned"], out["unsharded"]
+    la, _ = train._flatten(a["state"])
+    lb, _ = train._flatten(b["state"])
+    bitwise = torch.equal(a["elbo"], b["elbo"]) and all(torch.equal(x, y) for x, y in zip(la, lb))
+    rel = max([_rel_diff(a["elbo"], b["elbo"])] + [
+        ((x.double() - y.double()).abs().max() / y.double().abs().max().clamp(min=1e-30)).item()
+        for x, y in zip(la, lb) if x.numel()])
+    res = {"case": name, "elbo": float(a["elbo"]), "elbo_unsharded": float(b["elbo"]),
+           "bitwise": bitwise, "max_rel_diff": rel,
+           "launches_planned": {k: v for k, v in a["launches"].items() if v},
+           "launches_unsharded": {k: v for k, v in b["launches"].items() if v},
+           "seq_calls": a["seq_calls"], "collectives": inv,
+           **{f"{k}_{m}": out[k][m] for k in ("planned", "unsharded")
+              for m in ("eager_ms", "busy_ms")}, "ok": True}
+    if not (bitwise or rel <= 1e-6):
+        res["ok"] = False
+        fail("mesh_single_card", f"{name}: planned differs from unsharded by {rel}")
+    missing = [k for k in must_launch if not a["launches"].get(k)]
+    if missing:
+        res["ok"] = False
+        fail("mesh_single_card", f"{name}: {missing} did not launch under the plan")
+    if seq_route and a["seq_calls"] < 1:
+        res["ok"] = False
+        fail("mesh_single_card", f"{name}: the T-sharded chain was not taken")
+    return res
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh_single_card():
+    """The paths under a ``MeshPlan`` at world size 1 (one process, NCCL,
+    a TCP store on 127.0.0.1): grouped MovieLens K=1000 QEM and VI under
+    ``{"plate_1": "p"}`` + all K, covid K=30 QEM under ``{"nRs": "p"}`` +
+    all K and under ``{"nDs": "t"}``, AR(1) K=1000's ELBO under
+    ``{"T": "t"}``.  Returns each kernel counter's launches under a plan."""
+    import torch.distributed as dist
+    from alan_tpu_torch import train
+    from alan_tpu_torch.models import ar1, covid
+    from alan_tpu_torch.models import movielens as ml
+    from alan_tpu_torch.parallel import distributed
+    from alan_tpu_torch.parallel.mesh import MeshPlan, make_mesh
+    phase = "mesh_single_card"
+    t0 = time.perf_counter()
+    started = distributed.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0,
+                                     device_type="cuda")
+    cases = []
+    try:
+        kp = make_mesh({"k": 1, "p": 1})
+        t1 = make_mesh({"t": 1})
+        ps, data, cov = ml.load_data_covariates(seed=0, M=ml.M, N=ml.N, device="cuda")
+        grouped = ml.grouped_problem(ps, data, cov, device="cuda")
+        grouped_opt = ml.grouped_problem(ps, data, cov, "opt", device="cuda")
+        plate = MeshPlan(kp, {"plate_1": "p"}).with_all_K("k")
+        cases.append(_planned_case(plate, "grouped_qem_k1000", lambda plan: train.qem(
+            grouped, K_MAIN, lr=LR_QEM, mesh_plan=plan), ["lowrank_fwd", "lowrank_bwd_dD"],
+            False))
+        cases.append(_planned_case(plate, "grouped_vi_k1000", lambda plan: train.vi(
+            grouped_opt, K_MAIN, lr=0.01, mesh_plan=plan),
+            ["lowrank_fwd", "lowrank_bwd_dU", "lowrank_bwd_dV"], False))
+        cps, _, cdata, _, ccov, _ = covid.load_data_covariates(seed=0, device="cuda")
+        cproblem = covid.generate_problem(cps, cdata, ccov, "qem", device="cuda")
+        for label, plan in (("covid_qem_k30_nRs", MeshPlan(kp, {"nRs": "p"}).with_all_K("k")),
+                            ("covid_qem_k30_nDs", MeshPlan(t1, {"nDs": "t"}))):
+            cases.append(_planned_case(plan, label, lambda plan: train.qem(
+                cproblem, K_COVID, lr=LR_QEM, mesh_plan=plan), ["smallk_fwd", "smallk_bwd"],
+                label.endswith("nDs")))
+        ar = ar1.generate_problem("cuda")
+
+        def ar1_step(plan):
+            f = train.elbo_fn(ar, K_AR1, reparam=False, mesh_plan=plan)
+
+            def step(state, gen):
+                return state, f(state[0], state[1], gen).detach()
+            return step, (ar.P.state(), ar.Q.state())
+        cases.append(_planned_case(MeshPlan(t1, {"T": "t"}), "ar1_elbo_k1000", ar1_step,
+                                   ["logmmexp"], True))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    launches = {}
+    for c in cases:
+        for k, v in c["launches_planned"].items():
+            launches[k] = launches.get(k, 0) + v
+    emit({"phase": phase, "world_size": 1, "backend": "nccl", "initialized": started,
+          "seconds": time.perf_counter() - t0, "cases": cases,
+          "ok": all(c["ok"] for c in cases)})
+    return launches
+
+
+def _runner_record(argv, torchrun=False):
+    """One runner invocation as a subprocess: (exit code, its JSON record or
+    None, the end of its output)."""
+    cmd = [sys.executable, "-m", "alan_tpu_torch.runner", *argv]
+    if torchrun:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "1",
+               "--master-addr", "127.0.0.1", "--master-port", str(_free_port()),
+               "-m", "alan_tpu_torch.runner", *argv]
+    p = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, PYTHONPATH=REPO))
+    rec = None
+    for line in reversed(p.stdout.strip().splitlines()):
+        if line.startswith("{"):
+            rec = json.loads(line)
+            break
+    return p.returncode, rec, (p.stdout + p.stderr)[-2000:]
+
+
+def phase_runner_cli():
+    """``python -m alan_tpu_torch.runner`` as a subprocess: covid QEM K=30
+    for 5 iterations, the same with ``--split nRs 23``, and under
+    ``torchrun --nproc-per-node 1`` with ``--mesh p=1 --shard nRs=p``.
+    Each must exit 0 with finite ELBOs, its first ELBO the train API's
+    from the same seed (the same strategy; the plan's against the plain
+    step, bitwise or within 1e-6 relative)."""
+    from alan_tpu_torch import Split, train
+    from alan_tpu_torch.models import covid
+    from alan_tpu_torch.utils import seeded_generator
+    phase = "runner_cli"
+    base = ["--model", "covid", "--method", "qem", "--K", str(K_COVID), "--iters", "5"]
+    runs = {"plain": (base, False, None), "split": (base + ["--split", "nRs", "23"], False,
+                                                   Split("nRs", 23)),
+            "torchrun_mesh": (base + ["--mesh", "p=1", "--shard", "nRs=p"], True, None)}
+    ps, _, data, _, cov, _ = covid.load_data_covariates(seed=0, device="cuda")
+    problem = covid.generate_problem(ps, data, cov, "qem", device="cuda")
+    rows, ok = {}, True
+    for name, (argv, torchrun, strategy) in runs.items():
+        t0 = time.perf_counter()
+        rc, rec, tail = _runner_record(argv, torchrun)
+        secs = time.perf_counter() - t0
+        kw = {} if strategy is None else {"computation_strategy": strategy}
+        step, state = train.qem(problem, K_COVID, lr=LR_QEM, **kw)
+        _, first = step(state, seeded_generator(1, "cuda"))
+        row = {"rc": rc, "seconds": secs, "train_api_first_elbo": float(first)}
+        good = rc == 0 and rec is not None and _finite(rec["elbos"]) and len(rec["elbos"]) == 5
+        if good:
+            row.update(elbos=rec["elbos"], mean_iter_time_s=rec["mean_iter_time_s"],
+                       compile_time_s=rec["compile_time_s"],
+                       peak_memory_bytes=rec["peak_memory_bytes"])
+            rel = _rel_diff(rec["elbos"][0], float(first))
+            row["first_elbo_bitwise"] = rec["elbos"][0] == float(first)
+            row["first_elbo_rel_diff"] = rel
+            good = row["first_elbo_bitwise"] or (torchrun and rel <= 1e-6)
+        if not good:
+            ok = False
+            row["tail"] = tail
+            fail(phase, f"{name}: rc {rc}, record {rec is not None}: {tail[-500:]}")
+        rows[name] = row
+    emit({"phase": phase, "runs": rows, "ok": ok})
+
+
 def nvidia_smi_clocks():
     """The card's SM clock, power draw and power limit, sampled now."""
     out = subprocess.run(
@@ -4526,6 +4917,7 @@ def main():
 
     card = nvidia_smi_line()
     phase_build()
+    host = _start_host_counts()            # the host's counts, beside the card's phases
     lowrank = phase_kernels()
     smallk = phase_chain_kernels()
     fused = phase_fused_kernel()
@@ -4585,6 +4977,17 @@ def main():
         elif out is not None:
             strategy_launches[name.replace("strategies_", "")] = out
     emit({"phase": "strategies_and_gold", "seconds": seconds})
+    for name, run in (("perf_report", lambda: phase_perf_report(host)),
+                      ("profiling_trace", phase_profiling_trace),
+                      ("mesh_single_card", phase_mesh_single_card),
+                      ("runner_cli", phase_runner_cli)):
+        t0 = time.perf_counter()
+        out = run()
+        seconds[name] = time.perf_counter() - t0
+        if name == "mesh_single_card":
+            mesh_launches = out
+    emit({"phase": "perf_mesh_runner", "seconds": {k: seconds[k] for k in (
+        "perf_report", "profiling_trace", "mesh_single_card", "runner_cli")}})
 
     def graphed(key):
         """Each captured path's launches of one counter: per replay, and
@@ -4605,6 +5008,7 @@ def main():
              source="alan_tpu_torch/csrc/lowrank_lse.cu",
              replaces="alan_tpu/ops/pallas_lowrank.py:215",
              launches=ml_launches["lowrank_fwd"], vi_launches=vi_launches["lowrank_fwd"],
+             mesh_launches=mesh_launches.get("lowrank_fwd", 0),
              posterior_launches={k: v["lowrank_fwd"] for k, v in post_launches.items()},
              graph_launches=graphed("lowrank_fwd"),
              families_launches=fam_launches["lowrank_fwd"],
@@ -4617,6 +5021,8 @@ def main():
              source="alan_tpu_torch/csrc/lowrank_lse.cu",
              replaces="alan_tpu/ops/pallas_lowrank.py:298",
              launches=ml_launches["lowrank_bwd"],
+             mesh_launches_by_mode={m: mesh_launches.get(f"lowrank_bwd_{m}", 0)
+                                    for m in ("dD", "dU", "dV")},
              vi_launches_by_mode={m: vi_launches[f"lowrank_bwd_{m}"] for m in ("dD", "dU", "dV")},
              vi_device_ms_per_step=vi_modes,
              posterior_launches_by_mode={
@@ -4635,6 +5041,7 @@ def main():
         dict(name="smallk_logmmexp_fwd", route="cuda", source=smallk_src,
              replaces="alan_tpu/ops/pallas_smallk.py:66",
              launches=covid_launches["smallk_fwd"], rws_launches=rws_launches["smallk_fwd"],
+             mesh_launches=mesh_launches.get("smallk_fwd", 0),
              corrq_launches=corrq_launches["smallk_fwd"],
              posterior_launches={k: v["smallk_fwd"] for k, v in covid_post_launches.items()},
              graph_launches=graphed("smallk_fwd"),
@@ -4647,6 +5054,7 @@ def main():
         dict(name="smallk_logmmexp_bwd", route="cuda", source=smallk_src,
              replaces="alan_tpu/ops/pallas_smallk.py:80",
              launches=covid_launches["smallk_bwd"], rws_launches=rws_launches["smallk_bwd"],
+             mesh_launches=mesh_launches.get("smallk_bwd", 0),
              corrq_launches=corrq_launches["smallk_bwd"],
              posterior_launches={k: v["smallk_bwd"] for k, v in covid_post_launches.items()},
              graph_launches=graphed("smallk_bwd"),
@@ -4660,6 +5068,7 @@ def main():
              source="alan_tpu_torch/csrc/logmmexp.cu",
              replaces="alan_tpu/ops/pallas_logmmexp.py:28",
              launches=ar1_launches["logmmexp"],
+             mesh_launches=mesh_launches.get("logmmexp", 0),
              posterior_launches={"importance_sample": ar1_post_launches["logmmexp"]},
              strategy_launches=by_strategy("logmmexp"),
              graph_launches=graphed("logmmexp"),
