@@ -9,6 +9,10 @@ Shared libraries with plain C interfaces, loaded with ctypes:
   (``lowrank_lse``), the small-K chain log-matmul (``smallk_logmmexp``) and
   the fused log-matmul (``logmmexp``).
 
+Also one program, ``alan-grid`` (:func:`start_grid_runner`), the
+experiment-grid executor, from the repository's ``csrc/gridrunner.cpp``
+with ``csrc/Makefile``'s flags.
+
 Each goes into ``alan_tpu_torch/_native/`` under a name that carries a hash
 of its source, the headers beside the CUDA sources (:data:`HEADERS`) and the
 flags, so an edited source or header is rebuilt and never mixed up with an
@@ -28,6 +32,7 @@ import subprocess
 _PKG = os.path.dirname(os.path.abspath(__file__))
 NATIVE_DIR = os.path.join(_PKG, "_native")
 PLANNER_SRC = os.path.join(os.path.dirname(_PKG), "csrc", "pathopt.cpp")
+GRID_SRC = os.path.join(os.path.dirname(_PKG), "csrc", "gridrunner.cpp")
 #: CUDA kernels: library name -> source
 KERNELS = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
            for name in ("lowrank_lse", "smallk_logmmexp", "logmmexp")}
@@ -37,6 +42,7 @@ HEADERS = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 GXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-shared"]
+GRID_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-pthread"]
 
 
 def _nvcc() -> str:
@@ -56,14 +62,14 @@ class _Build:
     raises with the compiler's output."""
 
     def __init__(self, name: str, compiler: list[str], src: str,
-                 flags: list[str], deps: list[str] = ()):
+                 flags: list[str], deps: list[str] = (), filename: str = "lib{}-{}.so"):
         digest = hashlib.sha256()
         for path in (src, *deps):
             with open(path, "rb") as fh:
                 digest.update(fh.read())
         digest.update(" ".join(flags).encode())
         self.path = os.path.join(NATIVE_DIR,
-                                 f"lib{name}-{digest.hexdigest()[:12]}.so")
+                                 filename.format(name, digest.hexdigest()[:12]))
         self.log = ""
         self._proc = None
         if os.path.exists(self.path):
@@ -90,6 +96,11 @@ class _Build:
 
 def start_planner() -> _Build:
     return _Build("alanpath", ["g++"], PLANNER_SRC, GXX_FLAGS)
+
+
+def start_grid_runner() -> _Build:
+    """Start (or find) the g++ build of the ``alan-grid`` executable."""
+    return _Build("alan-grid", ["g++"], GRID_SRC, GRID_FLAGS, filename="{}-{}")
 
 
 def start_kernel(name: str) -> _Build:

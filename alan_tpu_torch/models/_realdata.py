@@ -52,3 +52,32 @@ def split_dts(arrays, dims, axis, n_train, device):
     cut = lambda a: np.take(a, np.arange(n_train), axis=axis)
     return ({k: dt_from_numpy(cut(a), dims, device) for k, a in arrays.items()},
             {k: dt_from_numpy(a, dims, device) for k, a in arrays.items()})
+
+
+def fake_latents(P, arrays, data, plates, device):
+    """The latents fake data were drawn from (``alan_tpu``'s
+    ``return_fake_latents``): ``{name: DT}`` for every latent of the P
+    program ``P`` (a BoundPlate over the extended plates) found in the
+    numpy ``arrays``, over the extended plates.  An array's leading axes
+    are the plates that hold its latent, in the order of ``plates`` (the
+    model's axis order); the names of ``data`` are skipped."""
+    from ..convert import dt_from_numpy
+    from ..ir import Plate
+    out = {}
+
+    def walk(plate, inside):
+        for k, v in plate.flat_prog.items():
+            if isinstance(v, Plate):
+                walk(v, {*inside, k})
+            elif k in arrays and k not in data:
+                if not inside <= set(plates):
+                    raise ValueError(f"{k}: plates {sorted(inside)} not all in {plates}")
+                out[k] = dt_from_numpy(arrays[k], [d for d in plates if d in inside],
+                                       device)
+    walk(P.plate, set())
+    return out
+
+
+def check_fake(fake_data, return_fake_latents):
+    if return_fake_latents and not fake_data:
+        raise ValueError("return_fake_latents requires fake_data=True")

@@ -65,3 +65,13 @@ def generate_problem(device="cuda"):
     data = {"obs": dt_from_numpy(data_ts, ("T",), device)}
     return Problem(BoundPlate(P, platesizes, device=device),
                    BoundPlate(Q, platesizes, device=device), data, device=device)
+
+
+def load_and_generate_problem(seed=0, Q_param_type=None, fake_data=True, data_dir=None,
+                              return_fake_latents=False, device="cuda"):
+    """(problem, None, None, None): the one fixed dataset (numpy seed 12)
+    and no held-out part; Q has no parameters, so ``seed`` and
+    ``Q_param_type`` change nothing."""
+    if not fake_data or return_fake_latents:
+        raise ValueError("ar1 has one fixed dataset and no fake latents")
+    return generate_problem(device), None, None, None

@@ -19,7 +19,7 @@ import torch
 from ..bound import BoundPlate
 from ..ir import Bernoulli, Data, Group, Normal, OptParam, Plate, QEMParam
 from ..problem import Problem
-from ._realdata import load_train_test, split_dts
+from ._realdata import check_fake, fake_latents, load_train_test, split_dts
 
 num_actors, num_blocks = 7, 6
 num_repeats, num_repeats_extended = 10, 12
@@ -50,9 +50,12 @@ def fake_arrays(seed=0):
     return out
 
 
-def load_data_covariates(seed=0, fake_data=True, data_dir="data/", device="cuda"):
+def load_data_covariates(seed=0, fake_data=True, data_dir="data/", device="cuda",
+                         return_fake_latents=False):
     """(platesizes, all_platesizes, data, all_data, covariates,
-    all_covariates) on ``device``."""
+    all_covariates) on ``device``, and with ``return_fake_latents`` the
+    latents the fake data were drawn from (``_realdata.fake_latents``)."""
+    check_fake(fake_data, return_fake_latents)
     if fake_data:
         a = fake_arrays(seed)
         cov = {k: a[k] for k in ("condition", "prosoc_left")}
@@ -66,8 +69,12 @@ def load_data_covariates(seed=0, fake_data=True, data_dir="data/", device="cuda"
     covariates, all_covariates = split_dts(cov, _DIMS, 2, num_repeats, device)
     data, all_data = split_dts({"obs": obs}, _DIMS, 2, num_repeats, device)
     sizes = dict(zip(_DIMS, obs.shape))
-    return ({**sizes, "plate_repeats": num_repeats}, sizes,
-            data, all_data, covariates, all_covariates)
+    out = ({**sizes, "plate_repeats": num_repeats}, sizes,
+           data, all_data, covariates, all_covariates)
+    if return_fake_latents:
+        out += (fake_latents(get_P(out[1], out[5], device), a, all_data, _DIMS,
+                             device),)
+    return out
 
 
 def get_P(platesizes, covariates, device="cuda"):
@@ -124,8 +131,11 @@ def generate_problem(platesizes, data, covariates, Q_param_type="qem", device="c
 
 
 def load_and_generate_problem(seed=0, Q_param_type="qem", fake_data=True,
-                              data_dir="data/", device="cuda"):
-    """(problem, all_data, all_covariates, all_platesizes)."""
-    ps, all_ps, data, all_data, cov, all_cov = load_data_covariates(
-        seed, fake_data, data_dir, device)
-    return generate_problem(ps, data, cov, Q_param_type, device), all_data, all_cov, all_ps
+                              data_dir="data/", return_fake_latents=False, device="cuda"):
+    """(problem, all_data, all_covariates, all_platesizes), and with
+    ``return_fake_latents`` the latents the fake data were drawn from."""
+    out = load_data_covariates(seed, fake_data, data_dir, device,
+                               return_fake_latents=return_fake_latents)
+    ps, all_ps, data, all_data, cov, all_cov = out[:6]
+    problem = generate_problem(ps, data, cov, Q_param_type, device)
+    return (problem, all_data, all_cov, all_ps, *out[6:])

@@ -32,6 +32,7 @@ from ..convert import dt_from_numpy
 from ..ir import (Data, Group, MultivariateNormal, NegativeBinomial, Normal,
                   OptParam, Plate, QEMParam, Timeseries)
 from ..problem import Problem
+from ._realdata import check_fake, fake_latents, load_array
 
 nRs = 92
 nDs = 137
@@ -80,10 +81,13 @@ def fake_data(seed=0, nRs=nRs, nDs=nDs):
     return out
 
 
-def load_data_covariates(seed=0, nRs=nRs, nDs=nDs, device="cuda"):
+def load_data_covariates(seed=0, nRs=nRs, nDs=nDs, device="cuda",
+                         return_fake_latents=False):
     """(platesizes, all_platesizes, data, all_data, covariates,
     all_covariates) of a fake dataset, on ``device``; the training part is
-    the first ``int(0.8 * nDs)`` days."""
+    the first ``int(0.8 * nDs)`` days.  With ``return_fake_latents`` also
+    the latents the data were drawn from, over all ``nDs`` days
+    (``_realdata.fake_latents``)."""
     arrays = fake_data(seed, nRs, nDs)
     nDs_train = int(nDs * 0.8)
 
@@ -96,8 +100,28 @@ def load_data_covariates(seed=0, nRs=nRs, nDs=nDs, device="cuda"):
                       ("ActiveCMs_mobility", "mobility")):
         covariates[name], all_covariates[name] = split(arrays[key])
     obs, all_obs = split(arrays["obs"])
-    return ({"nRs": nRs, "nDs": nDs_train}, {"nRs": nRs, "nDs": nDs},
-            {"obs": obs}, {"obs": all_obs}, covariates, all_covariates)
+    out = ({"nRs": nRs, "nDs": nDs_train}, {"nRs": nRs, "nDs": nDs},
+           {"obs": obs}, {"obs": all_obs}, covariates, all_covariates)
+    if return_fake_latents:
+        out += (fake_latents(get_P(out[1], all_covariates, device=device), arrays,
+                             out[3], _PLATES, device),)
+    return out
+
+
+_COVARIATES = ("ActiveCMs_NPIs", "ActiveCMs_wearing", "ActiveCMs_mobility")
+
+
+def load_real_data(data_dir, device="cuda"):
+    """(platesizes, all_platesizes, data, all_data, covariates,
+    all_covariates) read from the reference's files in ``data_dir``: the
+    pre-split ``ActiveCMs_*`` and ``obs`` arrays, train and ``_all``."""
+    load = lambda stem: dt_from_numpy(load_array(data_dir, stem), _PLATES, device)
+    covariates = {k: load(k) for k in _COVARIATES}
+    all_covariates = {k: load(k + "_all") for k in _COVARIATES}
+    obs, all_obs = load("obs"), load("obs_all")
+    sizes = lambda t: dict(zip(_PLATES, t.data.shape))
+    return (sizes(obs), sizes(all_obs), {"obs": obs}, {"obs": all_obs},
+            covariates, all_covariates)
 
 
 def get_P(platesizes, covariates, corr_CM=False, device="cuda"):
@@ -197,3 +221,17 @@ def generate_problem(platesizes, data, covariates, Q_param_type="opt",
     )
     Q = BoundPlate(Q, platesizes, inputs=covariates, device=device)
     return Problem(P, Q, data, device=device)
+
+
+def load_and_generate_problem(seed=0, Q_param_type="opt", fake_data=True,
+                              data_dir="data/", return_fake_latents=False, device="cuda"):
+    """(problem, all_data, all_covariates, all_platesizes) at the published
+    size, and with ``return_fake_latents`` the latents the fake data were
+    drawn from; ``fake_data=False`` reads the reference's files from
+    ``data_dir``."""
+    check_fake(fake_data, return_fake_latents)
+    out = (load_data_covariates(seed, device=device, return_fake_latents=return_fake_latents)
+           if fake_data else load_real_data(data_dir, device))
+    ps, all_ps, data, all_data, cov, all_cov = out[:6]
+    problem = generate_problem(ps, data, cov, Q_param_type, device=device)
+    return (problem, all_data, all_cov, all_ps, *out[6:])

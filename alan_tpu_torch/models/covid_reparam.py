@@ -16,12 +16,9 @@ import math
 from ..bound import BoundPlate
 from ..ir import NegativeBinomial, Normal, Plate, Timeseries
 from . import covid as base
-from ._realdata import load_array
 
 nCMs = base.nCMs
 SCALE = 10000.0
-_DIMS = ("nRs", "nDs")
-_COVARIATES = ("ActiveCMs_NPIs", "ActiveCMs_wearing", "ActiveCMs_mobility")
 
 name = "covid_reparam"
 
@@ -32,14 +29,7 @@ def load_data_covariates(seed=0, fake_data=True, data_dir="data/", nRs=base.nRs,
     all_covariates) on ``device``: covid's fake data, or its files."""
     if fake_data:
         return base.load_data_covariates(seed, nRs, nDs, device)
-    from ..convert import dt_from_numpy
-    load = lambda stem: dt_from_numpy(load_array(data_dir, stem), _DIMS, device)
-    covariates = {k: load(k) for k in _COVARIATES}
-    all_covariates = {k: load(k + "_all") for k in _COVARIATES}
-    obs, all_obs = load("obs"), load("obs_all")
-    sizes = lambda t: dict(zip(_DIMS, t.data.shape))
-    return (sizes(obs), sizes(all_obs), {"obs": obs}, {"obs": all_obs},
-            covariates, all_covariates)
+    return base.load_real_data(data_dir, device)
 
 
 def get_P(platesizes, covariates, corr_CM=False, device="cuda"):

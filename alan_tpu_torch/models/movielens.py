@@ -22,6 +22,7 @@ from ..bound import BoundPlate
 from ..convert import dt_from_numpy
 from ..ir import Bernoulli, Data, Group, Normal, OptParam, Plate, QEMParam
 from ..problem import Problem
+from ._realdata import check_fake, fake_latents, load_train_test
 
 d_z = 18
 M, N = 300, 5
@@ -50,6 +51,9 @@ def fake_data(seed=0, M=M, N=N, N_test=0):
             "x_test": x_test, "obs_test": obs_test}
 
 
+_fake_arrays = fake_data      # load_train_all's fake_data is its flag
+
+
 def load_data_covariates(seed=0, M=M, N=N, device="cuda"):
     """(platesizes, data, covariates) of a fake dataset, on ``device``."""
     arrays = fake_data(seed, M, N)
@@ -69,6 +73,31 @@ def load_all_data_covariates(seed=0, M=M, N=N, N_test=N, device="cuda"):
     covariates = {"x": dt_from_numpy(cat("x", "x_test"), plates, device)}
     data = {"obs": dt_from_numpy(cat("obs", "obs_test"), plates, device)}
     return {"plate_1": M, "plate_2": N + N_test}, data, covariates
+
+
+def load_train_all(seed=0, fake_data=True, data_dir="data/", M=M, N=N,
+                   return_fake_latents=False, device="cuda"):
+    """(platesizes, all_platesizes, data, all_data, covariates,
+    all_covariates) on ``device``: N training films and N held out, the
+    fake data of :func:`fake_data` (with ``return_fake_latents`` also the
+    latents they were drawn from, ``_realdata.fake_latents``) or with
+    ``fake_data=False`` the reference's ``weights_{N}_{M}`` and
+    ``data_y_{N}_{M}`` train/test files from ``data_dir``."""
+    check_fake(fake_data, return_fake_latents)
+    if fake_data:
+        ps, data, cov = load_data_covariates(seed, M, N, device)
+        all_ps, all_data, all_cov = load_all_data_covariates(seed, M, N, N, device)
+        out = (ps, all_ps, data, all_data, cov, all_cov)
+        if return_fake_latents:
+            out += (fake_latents(get_P(all_ps, all_cov, device), _fake_arrays(seed, M, N),
+                                 all_data, ("plate_1", "plate_2"), device),)
+        return out
+    x, x_all = load_train_test(data_dir, f"weights_{N}_{M}", f"test_weights_{N}_{M}", axis=-2)
+    y, y_all = load_train_test(data_dir, f"data_y_{N}_{M}", f"test_data_y_{N}_{M}", axis=-1)
+    plates = ("plate_1", "plate_2")
+    dt = lambda a: dt_from_numpy(a, plates, device)
+    return ({"plate_1": M, "plate_2": N}, {"plate_1": M, "plate_2": 2 * N},
+            {"obs": dt(y)}, {"obs": dt(y_all)}, {"x": dt(x)}, {"x": dt(x_all)})
 
 
 def get_P(platesizes, covariates, device="cuda"):
@@ -122,3 +151,15 @@ def grouped_problem(platesizes, data, covariates, Q_param_type="qem",
     )
     Q = BoundPlate(Q, platesizes, inputs=covariates, device=device)
     return Problem(P, Q, data, device=device)
+
+
+def load_and_generate_problem(seed=0, Q_param_type="qem", fake_data=True,
+                              data_dir="data/", return_fake_latents=False, device="cuda"):
+    """(problem, all_data, all_covariates, all_platesizes) of the ungrouped
+    model at the published size (:func:`load_train_all`), and with
+    ``return_fake_latents`` the latents the fake data were drawn from."""
+    out = load_train_all(seed, fake_data, data_dir, return_fake_latents=return_fake_latents,
+                         device=device)
+    ps, all_ps, data, all_data, cov, all_cov = out[:6]
+    problem = generate_problem(ps, data, cov, Q_param_type, device=device)
+    return (problem, all_data, all_cov, all_ps, *out[6:])

@@ -17,16 +17,13 @@ import math
 import torch
 
 from ..bound import BoundPlate
-from ..convert import dt_from_numpy
 from ..ir import Bernoulli, Data, Normal, OptParam, Plate, QEMParam
 from ..problem import Problem
 from . import movielens as base
-from ._realdata import load_train_test
 
 d_z = base.d_z
 M, N = base.M, base.N
 SCALE = 100.0
-_DIMS = ("plate_1", "plate_2")
 
 name = "movielens_reparam"
 
@@ -35,15 +32,7 @@ def load_data_covariates(seed=0, fake_data=True, data_dir="data/", M=M, N=N,
                          device="cuda"):
     """(platesizes, all_platesizes, data, all_data, covariates,
     all_covariates) on ``device``: N training films and N held out."""
-    if fake_data:
-        ps, data, cov = base.load_data_covariates(seed, M, N, device)
-        all_ps, all_data, all_cov = base.load_all_data_covariates(seed, M, N, N, device)
-        return ps, all_ps, data, all_data, cov, all_cov
-    x, x_all = load_train_test(data_dir, f"weights_{N}_{M}", f"test_weights_{N}_{M}", axis=-2)
-    y, y_all = load_train_test(data_dir, f"data_y_{N}_{M}", f"test_data_y_{N}_{M}", axis=-1)
-    dt = lambda a: dt_from_numpy(a, _DIMS, device)
-    return ({"plate_1": M, "plate_2": N}, {"plate_1": M, "plate_2": 2 * N},
-            {"obs": dt(y)}, {"obs": dt(y_all)}, {"x": dt(x)}, {"x": dt(x_all)})
+    return base.load_train_all(seed, fake_data, data_dir, M, N, device=device)
 
 
 def get_P(platesizes, covariates, device="cuda"):

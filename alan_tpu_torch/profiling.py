@@ -6,7 +6,9 @@
 * :func:`timed_steps` -- per-step wall-clock with the step's device
   synchronised after every step (the reference's ``iter_times``);
 * :func:`device_memory_stats` -- the allocator's statistics of each
-  visible card (the reference's max-allocated report).
+  visible card (the reference's max-allocated report);
+* :func:`device_busy` -- the card's busy time under a call (the union of
+  its kernels' and copies' intervals, from ``torch.profiler``).
 """
 from __future__ import annotations
 
@@ -84,3 +86,30 @@ def device_memory_stats():
         except RuntimeError:
             stats[f"cuda:{i}"] = None
     return stats
+
+
+def device_busy(fn, device):
+    """``(fn(), busy seconds)``: the union of the intervals in which the
+    card ``device`` ran anything (kernels, copies, memsets) during the call,
+    read from ``torch.profiler``; ``(fn(), None)`` on the CPU, which has no
+    device timeline.  The profiler slows the host, so time the call apart
+    to set the busy time against its wall time."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return fn(), None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize(device)
+    # operators' names are put on the device timeline too: count only the
+    # device's own activity, not those annotations
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA
+                   and not getattr(ev, "is_user_annotation", False))
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return out, busy_us / 1e6

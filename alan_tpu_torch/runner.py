@@ -14,6 +14,11 @@ The particles of iteration i come from one generator seeded ``seed + 1``,
 advanced from step to step, so iteration 0's ELBO is
 ``train.<method>(problem, K)[0](state0, seeded_generator(seed + 1))``'s.
 
+A grid: ``--grid spec.yaml`` expands a spec of ``gridspec``'s schema and
+runs every job in this process, one after another, each printing its
+record (``python -m alan_tpu_torch.run_grid`` runs them through
+``alan-grid`` instead, one process a job).
+
 Sharding (under ``torchrun``): ``--mesh p=2,t=4 --shard nRs=p,nDs=t
 [--shard-all-k p]`` maps dim names onto a mesh over the process group's
 ranks (``parallel/mesh.py``); every rank runs the step and rank 0 prints.
@@ -23,6 +28,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import sys
 import time
 
 import torch
@@ -35,27 +41,13 @@ DEFAULT_LR = {"vi": 0.01, "rws": 0.01, "qem": 0.1,
 def load_model(name, seed, Q_param_type, device, data_dir=None):
     """``(problem, all_data, all_covariates, all_platesizes)`` of the model
     ``alan_tpu_torch/models/<name>.py`` (the last three None where the
-    model has no held-out part)."""
+    model has no held-out part), through its ``load_and_generate_problem``:
+    fake data drawn from ``seed``, or the reference's files in
+    ``data_dir``."""
     model = importlib.import_module(f"alan_tpu_torch.models.{name}")
-    if hasattr(model, "load_and_generate_problem"):
-        kw = {"fake_data": False, "data_dir": data_dir} if data_dir else {}
-        return model.load_and_generate_problem(seed=seed, Q_param_type=Q_param_type,
-                                               device=device, **kw)
-    if data_dir:
-        raise ValueError(f"--data-dir: model {name!r} has fake data only")
-    if name == "covid":
-        ps, all_ps, data, all_data, cov, all_cov = model.load_data_covariates(
-            seed, device=device)
-        return (model.generate_problem(ps, data, cov, Q_param_type, device=device),
-                all_data, all_cov, all_ps)
-    if name == "movielens":
-        ps, data, cov = model.load_data_covariates(seed, device=device)
-        all_ps, all_data, all_cov = model.load_all_data_covariates(seed, device=device)
-        return (model.generate_problem(ps, data, cov, Q_param_type, device=device),
-                all_data, all_cov, all_ps)
-    if name == "ar1":
-        return model.generate_problem(device=device), None, None, None
-    raise ValueError(f"unknown model {name!r}")
+    kw = {"fake_data": False, "data_dir": data_dir} if data_dir else {}
+    return model.load_and_generate_problem(seed=seed, Q_param_type=Q_param_type,
+                                           device=device, **kw)
 
 
 def _pq_of(state, method):
@@ -230,14 +222,19 @@ def run(model_name, method="qem", K=30, iters=100, lr=None, predll_N=0,
     return result
 
 
-def main(argv=None):
+def _parser():
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--grid", default=None, metavar="SPEC",
+                    help="a YAML or JSON grid spec (alan_tpu_torch.gridspec's "
+                         "schema): run every expanded job in this process, one "
+                         "after another; the other flags are ignored, but for "
+                         "--device, the device of jobs that name no platform")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default) or 'cpu'")
-    ap.add_argument("--model", required=True,
+    ap.add_argument("--model", default=None,
                     help="a module of alan_tpu_torch/models (covid, movielens, "
-                         "radon, ...)")
+                         "radon, ...); required unless --grid is given")
     ap.add_argument("--method", default="qem", choices=METHODS)
     ap.add_argument("--K", type=int, default=30)
     ap.add_argument("--iters", type=int, default=100)
@@ -271,17 +268,53 @@ def main(argv=None):
                     help="map dim names to mesh axes, e.g. nRs=p,nDs=t")
     ap.add_argument("--shard-all-k", default=None, metavar="AXIS",
                     help="also shard every K-dim over this axis")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def _run_args(args):
     split = (args.split[0], int(args.split[1])) if args.split else None
-    result = run(args.model, args.method, args.K, args.iters, args.lr,
-                 args.predll_N, args.Q_param_type, split, args.seed, args.out,
-                 predll_every=args.predll_every, fuse_iters=args.fuse_iters,
-                 runs=args.runs, data_dir=args.data_dir, mesh_spec=args.mesh,
-                 shard_spec=args.shard, shard_all_k=args.shard_all_k,
-                 device=args.device)
+    return run(args.model, args.method, args.K, args.iters, args.lr,
+               args.predll_N, args.Q_param_type, split, args.seed, args.out,
+               predll_every=args.predll_every, fuse_iters=args.fuse_iters,
+               runs=args.runs, data_dir=args.data_dir, mesh_spec=args.mesh,
+               shard_spec=args.shard, shard_all_k=args.shard_all_k,
+               device=args.device)
+
+
+def _grid_jobs(ap, args):
+    """The argv lists of ``--grid``'s expanded jobs, each with a
+    ``--device`` (the command line's where the job names no platform),
+    and their parsed arguments; jobs on different devices are refused, as
+    ``examples/runner.py`` refuses mixed platforms."""
+    from .gridspec import expand, load_spec
+    argvs = [argv if "--device" in argv else [*argv, "--device", args.device]
+             for argv in expand(load_spec(args.grid))]
+    jobs = [ap.parse_args(argv) for argv in argvs]
+    devices = {job.device for job in jobs}
+    if len(devices) > 1:
+        ap.error(f"--grid jobs ask for different devices ({sorted(devices)}); "
+                 f"run a mixed spec through python -m alan_tpu_torch.run_grid "
+                 f"(one process a job) instead")
+    return argvs, jobs
+
+
+def main(argv=None):
+    ap = _parser()
+    args = ap.parse_args(argv)
+    if args.grid:
+        runs = list(zip(*_grid_jobs(ap, args)))
+    elif args.model is None:
+        ap.error("--model is required (unless --grid is given)")
+    else:
+        runs = [(None, args)]
     import torch.distributed as dist
-    if not dist.is_initialized() or dist.get_rank() == 0:
-        print(json.dumps(result), flush=True)
+    for i, (job_argv, job) in enumerate(runs):
+        if job_argv is not None:
+            print(f"[grid {i + 1}] python -m alan_tpu_torch.runner " + " ".join(job_argv),
+                  file=sys.stderr, flush=True)
+        result = _run_args(job)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            print(json.dumps(result), flush=True)
     if dist.is_initialized():
         dist.destroy_process_group()
 

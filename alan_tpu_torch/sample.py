@@ -204,6 +204,12 @@ class Sample:
             return v.dim_size(self.groupvarname2Kdim[v2g[vn]])
         raise Exception("no latents")
 
+    def update_qem_params(self, lr: float, computation_strategy=no_checkpoint):
+        """One QEM update of P's and then Q's BoundPlate state (in place),
+        from this sample's moments (``alan_tpu/sample.py:265``)."""
+        self.problem.P._update_qem_params(lr, self, computation_strategy)
+        self.problem.Q._update_qem_params(lr, self, computation_strategy)
+
     def marginals(self, joints=(), computation_strategy=checkpoint):
         """The marginal posterior weights of every latent's particles (and
         of the joints asked for, tuples of groupvarnames): one forward and

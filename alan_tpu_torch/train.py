@@ -24,6 +24,8 @@ steps on the non-MP ELBO of K joint particles (``sample_nonmp.py``).
 ``scan_steps`` runs ``n`` steps as one loop and ``vmap_runs`` runs
 independent loops: on the card as CUDA graphs, captured once and replayed
 with no host dispatch, on the CPU as the eager loop, with the same draws.
+A planned step is captured under its plan, its collectives inside the
+graph.
 
 ``elbo_fn``, ``vi``, ``rws`` and ``qem`` take ``mesh_plan=`` (a
 ``parallel.mesh.MeshPlan``, ``alan_tpu/train.py:33-47``): the step runs
@@ -537,7 +539,6 @@ class _Scan:
     def __call__(self, state, generator):
         if generator.device.type != "cuda":
             return _eager(self.step, self.n_steps, state, generator)
-        _refuse_planned(self.step)
         entry = self._start(state, generator)
         return self._finish(entry)
 
@@ -586,14 +587,6 @@ class _Scan:
         return _unflatten(spec, [x.clone() for x in last.static]), elbos.clone()
 
 
-def _refuse_planned(step):
-    if getattr(step, "mesh_plan", None) is not None:
-        raise ValueError(
-            "scan_steps / vmap_runs do not capture a planned step (a MeshPlan's "
-            "collectives inside a CUDA graph are not supported yet): run it "
-            "eagerly, one step a call")
-
-
 def scan_steps(step, n_steps: int, unroll: int | None = None):
     """``n_steps`` training steps as one replayed loop (counterpart of
     ``alan_tpu/train.py:316-350``): ``step(state, generator) -> (state,
@@ -613,7 +606,10 @@ def scan_steps(step, n_steps: int, unroll: int | None = None):
     (``run.capture_seconds`` says how long the last call captured).  A
     capture that fails raises: there is no fallback to the eager loop.
     On the CPU, ``run`` is that eager loop.  A planned step (``mesh_plan=``)
-    is refused on the card."""
+    is captured under its plan: the warm-up runs each of its collectives
+    once (so the communicators exist before the capture) and the graph
+    holds them, so every rank replays the same collectives in the same
+    order."""
     return _Scan(step, n_steps, 1 if unroll is None else unroll)
 
 
@@ -651,9 +647,9 @@ class _Runs:
                              "tensors, and this state has none")
         device = leaves[0].device
         gens = [run_generator(seed, r, device) for r in range(len(self.runs))]
-        if device.type == "cuda":
-            _refuse_planned(self.runs[0].step)
-        if device.type != "cuda":
+        # every rank must run a planned step's collectives in one order:
+        # its runs replay one after another on the current stream
+        if device.type != "cuda" or getattr(self.runs[0].step, "mesh_plan", None):
             outs = [run(state0, g) for run, g in zip(self.runs, gens)]
         else:
             main = torch.cuda.current_stream(device)
@@ -687,7 +683,8 @@ def vmap_runs(step, n_steps: int, n_runs: int, unroll: int = 1):
     On the card each run is a captured loop of its own (``scan_steps``:
     its own graphs, memory pool and generator), replayed on a stream of
     its own, so the runs overlap on the device, as ``vmap`` lets small-K
-    runs share the chip in ``alan_tpu``.  On the CPU the runs go one after
+    runs share the chip in ``alan_tpu``; a planned step's runs replay one
+    after another on the current stream.  On the CPU the runs go one after
     another."""
     return _Runs(step, n_steps, n_runs, unroll)
 

@@ -348,13 +348,29 @@ without its final line:
                 covid QEM K=30, 5 iterations; the same with ``--split nRs
                 23``; under ``torchrun --nproc-per-node 1`` with ``--mesh
                 p=1 --shard nRs=p``: exit 0, finite ELBOs, the first
-                ELBO the train API's from the same seed.
-
-``--only PHASE,...`` runs the build and the named phases of 32-37 alone (a
-rehearsal: no kernels line, no final line).
+                ELBO the train API's from the same seed;
+42. grid_cli -- a 2-job grid spec (full-size covid QEM K=30 and MovieLens
+                QEM K=30, 3 iterations each) through ``runner --grid`` in
+                this process, through ``python -m alan_tpu_torch.run_grid
+                -j 1`` (``alan-grid`` built from ``csrc/gridrunner.cpp``),
+                and as single runs: first ELBOs bitwise alike, the status
+                file 2 ok, a rerun skips both;
+43. moments_gold -- ``runner_moments`` on MovieLens at its published size:
+                NUTS in float32 (100 + 100 draws, 4 chains), QEM K=30: the
+                JAX record's keys, finite, the MP means equal to
+                ``marginals()``' on the fitted state; R-hat, ESS, times and
+                MSE reported;
+44. moments_is_sweep -- ``runner_moments_IS`` on MovieLens at its published
+                size, 3 runs, MP K = 3, 30, 300, global IS K = 100, 10^4,
+                10^6 in chunks of at most 30000: each K's record, run_s and
+                the card's busy time and idle share a run;
+45. scan_planned -- phase 40's five planned paths through ``scan_steps``
+                (captured under the plan, world size 1): bitwise the eager
+                planned loop, launches per replay, captured ms/step beside
+                the unsharded step's captured ms/step.
 
 Each path (phases 3, 5, 7, 9, 11, 13, 28, each model of 31, each call of
-14, 16, 17 and 19, and each family of 27) is driven with the launch counters set to 0 just
+14, 16, 17 and 19, each family of 27, and phases 42-44) is driven with the launch counters set to 0 just
 before it and read just after, and each but 13's, 19's and 27's is
 profiled over two more steps or calls.  Then the ``kernels`` line (the VI
 path's lowrank launches by backward mode, the RWS and corr_Q paths' chain
@@ -363,7 +379,8 @@ the QEM paths', the factored families' lowrank launches and ms,
 covid_reparam's chain launches (``canonical_launches``),
 ``graph_launches``: each captured path's launches per replay and its
 replays, and ``strategy_launches``: phases 32-34's launches a step under
-each strategy; ``mesh_launches``: phase 40's launches under a plan), the
+each strategy; ``mesh_launches``: phase 40's launches under a plan;
+``new_path_launches``: phases 42-44's launches and phase 45's per replay), the
 card's name and power limit as nvidia-smi prints them, and
 ``{"ok": true, "device": {...}}`` last.
 """
@@ -4886,6 +4903,292 @@ def phase_runner_cli():
     emit({"phase": phase, "runs": rows, "ok": ok})
 
 
+#: the grid phase's iterations a job; the gold phase's NUTS draws (warm-up,
+#: kept), QEM steps and K; the IS sweep's runs, Ks and chunk
+GRID_ITERS = 3
+MOMENTS_NUTS, MOMENTS_QEM_ITERS, MOMENTS_K = (100, 100), 50, 30
+IS_RUNS, IS_MP_KS, IS_IS_KS, IS_CHUNK = 3, (3, 30, 300), (100, 10 ** 4, 10 ** 6), 30000
+#: the planned captured loops' short and long calls (the slope rule)
+SCAN_PLANNED = {"grouped_qem_k1000": (5, 20), "grouped_vi_k1000": (5, 20),
+                "covid_qem_k30_nRs": (3, 12), "covid_qem_k30_nDs": (3, 12),
+                "ar1_elbo_k1000": (5, 20)}
+
+
+def _grid_spec(out_dir):
+    """The grid phase's spec: full-size covid QEM K=30 and MovieLens QEM
+    K=30, ``GRID_ITERS`` iterations each, records into ``out_dir``."""
+    return {"defaults": {"iters": GRID_ITERS, "method": "qem", "K": K_COVID,
+                         "out_dir": out_dir},
+            "jobs": [{"model": "covid"}, {"model": "movielens"}]}
+
+
+def phase_grid_cli():
+    """A 2-job grid (``_grid_spec``) through ``runner --grid`` in this
+    process (its launch counters read around it), then through
+    ``python -m alan_tpu_torch.run_grid -j 1`` (``alan-grid`` built from
+    ``csrc/gridrunner.cpp``, one process a job), and each job as a single
+    ``runner`` run in this process.  Gates: every record's first ELBO
+    bitwise the single run's, the status file 2 ok, a rerun adds nothing."""
+    import shutil
+    import tempfile
+    from alan_tpu_torch import gridspec, runner
+    phase = "grid_cli"
+    root = tempfile.mkdtemp(prefix="alan_grid_")
+    res, ok = {"phase": phase}, True
+    try:
+        specs = {}
+        for name in ("grid", "alan_grid", "single"):
+            os.makedirs(os.path.join(root, name))
+            specs[name] = os.path.join(root, f"{name}.json")
+            with open(specs[name], "w") as fh:
+                json.dump(_grid_spec(os.path.join(root, name)), fh)
+        t0 = time.perf_counter()
+        zero_counts()
+        runner.main(["--grid", specs["grid"]])
+        launches = read_counts()
+        res["grid_s"] = time.perf_counter() - t0
+        status = os.path.join(root, "status.tsv")
+        cmd = [sys.executable, "-m", "alan_tpu_torch.run_grid", specs["alan_grid"], "-j", "1",
+               "-t", "600", "-s", status]
+        t0 = time.perf_counter()
+        p = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
+        res["alan_grid_s"] = time.perf_counter() - t0
+        res["alan_grid_rc"] = p.returncode
+        for argv in gridspec.expand(_grid_spec(os.path.join(root, "single"))):
+            runner.main(argv)
+        with open(status) as fh:
+            lines = fh.read().splitlines()
+        res["status_ok"] = sum("\tok\t" in line for line in lines)
+        rerun = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+        with open(status) as fh:
+            res["rerun_skipped"] = rerun.returncode == 0 and fh.read().splitlines() == lines
+        rows = {}
+        for fname in sorted(os.listdir(os.path.join(root, "single"))):
+            recs = {}
+            for name in ("grid", "alan_grid", "single"):
+                path = os.path.join(root, name, fname)
+                recs[name] = json.load(open(path)) if os.path.exists(path) else None
+            firsts = {k: (r["elbos"][0] if r else None) for k, r in recs.items()}
+            rows[fname] = {"first_elbos": firsts,
+                           "bitwise": len({v for v in firsts.values()}) == 1
+                           and None not in firsts.values(),
+                           "finite": all(r is not None and _finite(r["elbos"])
+                                         for r in recs.values()),
+                           "mean_iter_time_s": {k: (r["mean_iter_time_s"] if r else None)
+                                                for k, r in recs.items()},
+                           "device_kind": recs["alan_grid"] and recs["alan_grid"]["device_kind"]}
+        res.update(records=rows, launches={k: v for k, v in launches.items() if v})
+        ok = (p.returncode == 0 and len(rows) == 2 and res["status_ok"] == 2
+              and res["rerun_skipped"] and all(r["bitwise"] and r["finite"]
+                                               for r in rows.values())
+              and launches.get("smallk_fwd", 0) > 0 and launches.get("smallk_bwd", 0) > 0)
+        if not ok:
+            res["alan_grid_tail"] = (p.stdout + p.stderr)[-1500:]
+            fail(phase, f"grid records, status or launches: {res}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res["ok"] = ok
+    emit(res)
+    return res.get("launches", {})
+
+
+def phase_moments_gold():
+    """``runner_moments`` on MovieLens at its published size: NUTS gold in
+    the data's float dtype (float32), QEM at K=30, the MP means from the
+    marginals.  Gates: the record has the JAX harness's keys and finite
+    values, and its MP means equal ``marginals()``' means recomputed on
+    the fitted state from the same seed.  R-hat, ESS, the times and the
+    MSE are reported, not gated."""
+    import numpy as np
+    import torch
+    from alan_tpu_torch import runner_moments
+    from alan_tpu_torch.models import movielens as ml
+    from alan_tpu_torch.utils import seeded_generator
+    phase, seed = "moments_gold", 0
+    problem = ml.load_and_generate_problem(seed=seed, Q_param_type="qem", device="cuda")[0]
+    zero_counts()
+    t0 = time.perf_counter()
+    rec, gold, mp, dims = runner_moments.compare(
+        problem, "movielens", K=MOMENTS_K, iters=MOMENTS_QEM_ITERS,
+        hmc_samples=MOMENTS_NUTS[1], hmc_warmup=MOMENTS_NUTS[0], seed=seed, sampler="nuts")
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    marg = problem.sample(MOMENTS_K, seeded_generator(seed + 3, "cuda"),
+                          reparam=False).marginals()
+    again = runner_moments.mp_means(marg, dims)
+    same = set(again) == set(mp) and all(np.array_equal(again[k], mp[k]) for k in mp)
+    keys = {"model", "K", "iters", "hmc_time_s", "mp_time_s", "hmc_diag", "moment_mse"}
+    diag = rec["hmc_diag"]
+    finite = (all(math.isfinite(v) for v in rec["moment_mse"].values())
+              and set(rec["moment_mse"]) == {"mu_z", "psi_z", "z"}
+              and all(np.isfinite(g).all() for g in gold.values()))
+    ok = keys <= set(rec) and finite and same
+    out = {"phase": phase, "record": rec, "seconds": seconds,
+           "nuts_draws": MOMENTS_NUTS, "dtype": str(next(iter(problem._data.values())).data.dtype),
+           "mp_means_equal_marginals": same,
+           "rhat_max": max(v for k, v in diag.items() if k.startswith("rhat_max")),
+           "ess_min": min(v for k, v in diag.items() if k.startswith("ess_min")),
+           "launches": {k: v for k, v in launches.items() if v}, "ok": ok}
+    if not ok:
+        fail(phase, f"record keys {sorted(rec)}, finite {finite}, MP means equal {same}")
+    emit(out)
+    del problem, marg
+    torch.cuda.empty_cache()
+    return out["launches"]
+
+
+def phase_moments_is_sweep():
+    """``runner_moments_IS.sweep`` on MovieLens at its published size: MP
+    at K in ``IS_MP_KS``, global IS at K in ``IS_IS_KS`` streamed in chunks
+    of at most ``IS_CHUNK``, ``IS_RUNS`` runs each; per K ``var_mse``,
+    ``fake_mse``, ``run_s`` and the card's busy time and idle share of a
+    run.  Gates: every K has the JAX record's keys and finite totals, and
+    the JSON written to ``out`` is the returned record; the launch
+    counters are read around the whole sweep."""
+    import shutil
+    import tempfile
+    import torch
+    from alan_tpu_torch import runner_moments_IS
+    phase = "moments_is_sweep"
+    out_dir = tempfile.mkdtemp(prefix="alan_is_")
+    out_path = os.path.join(out_dir, "moments_is_movielens.json")
+    zero_counts()
+    t0 = time.perf_counter()
+    rec = runner_moments_IS.sweep("movielens", list(IS_MP_KS), list(IS_IS_KS), runs=IS_RUNS,
+                                  chunk=IS_CHUNK, out=out_path, device="cuda")
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    with open(out_path) as fh:
+        written = json.load(fh) == json.loads(json.dumps(rec))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    keys = {"run_s", "var_mse", "fake_mse", "var_mse_total", "fake_mse_total", "busy_s",
+            "idle_share"}
+    rows, ok = {}, True
+    for tag in ("mp", "global_is"):
+        for K, r in rec[tag].items():
+            good = keys <= set(r) and all(r[k] is not None and math.isfinite(r[k]) for k in (
+                "run_s", "var_mse_total", "fake_mse_total", "busy_s"))
+            rows[f"{tag}_K{K}"] = ({k: r[k] for k in ("run_s", "steady_run_s", "busy_s",
+                                                       "idle_share", "var_mse_total",
+                                                       "fake_mse_total")}
+                                   if good else r)
+            ok = ok and good
+    if not written:
+        ok = False
+        fail(phase, "the JSON written to --out differs from the returned record")
+    if not ok:
+        fail(phase, f"a K failed or lacks the record's keys: {rows}")
+    emit({"phase": phase, "runs": IS_RUNS, "chunk": IS_CHUNK, "seconds": seconds,
+          "per_K": rows, "launches": {k: v for k, v in launches.items() if v}, "ok": ok})
+    torch.cuda.empty_cache()
+    return {k: v for k, v in launches.items() if v}
+
+
+def _planned_scan_case(name, make, n_short, n_long):
+    """One planned path at world size 1 through ``scan_steps``: its eager
+    planned loop and its captured loop over ``n_short`` steps from one
+    seed (ELBOs and state bitwise), the launches of a replay, captured
+    ms/step by the slope rule beside the unsharded step's captured loop."""
+    import torch
+    from alan_tpu_torch import train
+    planned, state0 = make(True)
+    plain, _ = make(False)
+    st_e, el_e = train._eager(planned, n_short, state0,
+                              torch.Generator(device="cuda").manual_seed(5))
+    run_s = train.scan_steps(planned, n_short)
+    with _CountedCaptures() as cap:
+        st_g, el_g = run_s(state0, torch.Generator(device="cuda").manual_seed(5))
+    torch.cuda.synchronize()
+    capture_s = run_s.capture_seconds
+    la, _ = train._flatten(st_g)
+    lb, _ = train._flatten(st_e)
+    bitwise = torch.equal(el_g, el_e) and all(torch.equal(x, y) for x, y in zip(la, lb))
+    ms, slopes, _ = _slope_ms(run_s, train.scan_steps(planned, n_long), state0)
+    ms_plain, slopes_plain, _ = _slope_ms(train.scan_steps(plain, n_short),
+                                          train.scan_steps(plain, n_long), state0)
+    launches = cap.records[0] if cap.records else {}
+    res = {"case": name, "n_steps": n_short, "bitwise_eager_planned": bitwise,
+           "elbos": el_g.tolist(), "capture_s": capture_s,
+           "captures": len(cap.records),
+           "launches_per_replay": {k: v for k, v in launches.items() if v},
+           "captured_ms_per_step": ms, "captured_ms_per_step_unsharded": ms_plain,
+           "ratio": ms / ms_plain, "slopes_ms": slopes, "slopes_ms_unsharded": slopes_plain,
+           "ok": bitwise and _finite(el_g.tolist()) and len(cap.records) == 1}
+    if not res["ok"]:
+        fail("scan_planned", f"{name}: captured planned loop against its eager loop: {res}")
+    SLOPE_MS[f"scan_planned_{name}"] = ms
+    del run_s
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_scan_planned():
+    """``mesh_single_card``'s five planned paths (world size 1, NCCL)
+    through ``scan_steps``: each captured under its plan, bitwise its eager
+    planned loop, with its launches per replay and its captured ms/step
+    beside the unsharded step's captured ms/step."""
+    import torch.distributed as dist
+    from alan_tpu_torch import train
+    from alan_tpu_torch.models import ar1, covid
+    from alan_tpu_torch.models import movielens as ml
+    from alan_tpu_torch.parallel import distributed
+    from alan_tpu_torch.parallel.mesh import MeshPlan, make_mesh
+    phase = "scan_planned"
+    t0 = time.perf_counter()
+    distributed.initialize(f"tcp://127.0.0.1:{_free_port()}", 1, 0, device_type="cuda")
+    cases = []
+    try:
+        kp, t1 = make_mesh({"k": 1, "p": 1}), make_mesh({"t": 1})
+        ps, data, cov = ml.load_data_covariates(seed=0, M=ml.M, N=ml.N, device="cuda")
+        grouped = ml.grouped_problem(ps, data, cov, device="cuda")
+        grouped_opt = ml.grouped_problem(ps, data, cov, "opt", device="cuda")
+        plate = MeshPlan(kp, {"plate_1": "p"}).with_all_K("k")
+        cps, _, cdata, _, ccov, _ = covid.load_data_covariates(seed=0, device="cuda")
+        cproblem = covid.generate_problem(cps, cdata, ccov, "qem", device="cuda")
+        ar = ar1.generate_problem("cuda")
+
+        def ar1_step(plan):
+            f = train.elbo_fn(ar, K_AR1, reparam=False, mesh_plan=plan)
+            return (lambda st, g: (st, f(st[0], st[1], g).detach())), (ar.P.state(),
+                                                                         ar.Q.state())
+        makes = {
+            "grouped_qem_k1000": lambda plan: train.qem(grouped, K_MAIN, lr=LR_QEM,
+                                                        mesh_plan=plan),
+            "grouped_vi_k1000": lambda plan: train.vi(grouped_opt, K_MAIN, lr=0.01,
+                                                      mesh_plan=plan),
+            "covid_qem_k30_nRs": lambda plan: train.qem(cproblem, K_COVID, lr=LR_QEM,
+                                                        mesh_plan=plan),
+            "covid_qem_k30_nDs": lambda plan: train.qem(cproblem, K_COVID, lr=LR_QEM,
+                                                        mesh_plan=plan),
+            "ar1_elbo_k1000": ar1_step}
+        plans = {"grouped_qem_k1000": plate, "grouped_vi_k1000": plate,
+                 "covid_qem_k30_nRs": MeshPlan(kp, {"nRs": "p"}).with_all_K("k"),
+                 "covid_qem_k30_nDs": MeshPlan(t1, {"nDs": "t"}),
+                 "ar1_elbo_k1000": MeshPlan(t1, {"T": "t"})}
+        for name, make in makes.items():
+            try:
+                cases.append(_planned_scan_case(
+                    name, lambda planned, m=make, p=plans[name]: m(p if planned else None),
+                    *SCAN_PLANNED[name]))
+            except Exception as e:        # a case that cannot be captured is recorded
+                import traceback
+                cases.append({"case": name, "ok": False,
+                              "error": f"{type(e).__name__}: {e}"[:2000],
+                              "traceback": traceback.format_exc()[-3000:]})
+                fail(phase, f"{name}: {type(e).__name__}: {str(e)[:500]}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    launches = {}
+    for c in cases:
+        for k, v in c.get("launches_per_replay", {}).items():
+            launches[k] = launches.get(k, 0) + v
+    emit({"phase": phase, "world_size": 1, "backend": "nccl",
+          "seconds": time.perf_counter() - t0, "cases": cases,
+          "ok": all(c["ok"] for c in cases)})
+    return {c["case"]: c.get("launches_per_replay", {}) for c in cases}
+
+
 def nvidia_smi_clocks():
     """The card's SM clock, power draw and power limit, sampled now."""
     out = subprocess.run(
@@ -4988,6 +5291,24 @@ def main():
             mesh_launches = out
     emit({"phase": "perf_mesh_runner", "seconds": {k: seconds[k] for k in (
         "perf_report", "profiling_trace", "mesh_single_card", "runner_cli")}})
+    new_launches = {}
+    for name in ("grid_cli", "moments_gold", "moments_is_sweep", "scan_planned"):
+        t0 = time.perf_counter()
+        new_launches[name] = globals()[f"phase_{name}"]()
+        seconds[name] = time.perf_counter() - t0
+    emit({"phase": "grid_moments_planned", "seconds": {k: seconds[k] for k in (
+        "grid_cli", "moments_gold", "moments_is_sweep", "scan_planned")}})
+
+    def new_paths(*keys):
+        """Each new path's launches of the counters ``keys``: the grid's
+        and the harnesses' over their run, the planned loops' per replay
+        by case."""
+        out = {path: {k: per.get(k, 0) for k in keys}
+               for path, per in new_launches.items() if path != "scan_planned"}
+        out["scan_planned_per_replay"] = {
+            case: {k: per.get(k, 0) for k in keys}
+            for case, per in new_launches["scan_planned"].items()}
+        return out
 
     def graphed(key):
         """Each captured path's launches of one counter: per replay, and
@@ -5012,6 +5333,7 @@ def main():
              posterior_launches={k: v["lowrank_fwd"] for k, v in post_launches.items()},
              graph_launches=graphed("lowrank_fwd"),
              families_launches=fam_launches["lowrank_fwd"],
+             new_path_launches=new_paths("lowrank_fwd"),
              strategy_launches=by_strategy("lowrank_fwd"),
              families_ms={k: {m: v[m] for m in ("F", "fwd_ms", "plain_fwd_ms",
                                                  "fwd_bound_tc_ms")}
@@ -5031,6 +5353,8 @@ def main():
              graph_launches={m: graphed(f"lowrank_bwd_{m}") for m in ("dD", "dU", "dV")},
              families_launches_by_mode={m: fam_launches[f"lowrank_bwd_{m}"]
                                         for m in ("dD", "dU", "dV")},
+             new_path_launches=new_paths("lowrank_bwd_dD", "lowrank_bwd_dU",
+                                         "lowrank_bwd_dV"),
              strategy_launches=by_strategy("lowrank_bwd_dD", "lowrank_bwd_dU",
                                            "lowrank_bwd_dV"),
              families_ms={k: {m: v[m] for m in ("F", "bwd_dD_ms", "bwd_all_grads_ms",
@@ -5047,6 +5371,7 @@ def main():
              graph_launches=graphed("smallk_fwd"),
              canonical_launches={k: v.get("smallk_fwd") for k, v in canonical_chain.items()},
              strategy_launches=by_strategy("smallk_fwd"),
+             new_path_launches=new_paths("smallk_fwd"),
              covid_own={k: FIXUP_REPORTS["covid_own"][k] for k in (
                  "chain_fwd_ms", "fast_fwd_ms", "fixup_fwd_ms", "fixup_fwd_bound_ms",
                  "joint_entries")},
@@ -5060,6 +5385,7 @@ def main():
              graph_launches=graphed("smallk_bwd"),
              canonical_launches={k: v.get("smallk_bwd") for k, v in canonical_chain.items()},
              strategy_launches=by_strategy("smallk_bwd"),
+             new_path_launches=new_paths("smallk_bwd"),
              covid_own={k: FIXUP_REPORTS["covid_own"][k] for k in (
                  "chain_bwd_ms", "fast_bwd_ms", "fixup_bwd_ms", "fixup_bwd_bound_ms",
                  "flagged_pairs_bwd")},
@@ -5071,6 +5397,7 @@ def main():
              mesh_launches=mesh_launches.get("logmmexp", 0),
              posterior_launches={"importance_sample": ar1_post_launches["logmmexp"]},
              strategy_launches=by_strategy("logmmexp"),
+             new_path_launches=new_paths("logmmexp"),
              graph_launches=graphed("logmmexp"),
              ar1_own_fixups=FIXUP_REPORTS["ar1_own"],
              ar1_own_bwd_fixups=[{k: r[k] for k in (

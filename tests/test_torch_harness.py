@@ -346,14 +346,16 @@ def _imported_modules(path):
 
 
 def test_port_imports_neither_jax_nor_alan_tpu():
-    """The port and chip_smoke.py import no JAX and nothing of alan_tpu."""
+    """The port and chip_smoke.py import no JAX, nothing of alan_tpu and
+    nothing of examples/ (the port keeps its own grid schema, harnesses
+    and examples)."""
     paths = list(_port_sources())
     assert len(paths) > 20 and os.path.exists(paths[-1])
     bad = []
     for path in paths:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "alan_tpu"):
+            if top in ("jax", "jaxlib", "alan_tpu", "examples"):
                 bad.append((os.path.relpath(path, REPO), mod))
     assert not bad, bad
 
@@ -361,5 +363,5 @@ def test_port_imports_neither_jax_nor_alan_tpu():
 def test_guard_sees_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import os\nfrom jax import numpy\n"
-                   "def f():\n    import alan_tpu.dims\n")
-    assert set(_imported_modules(str(src))) == {"os", "jax", "alan_tpu.dims"}
+                   "def f():\n    import alan_tpu.dims\n    from examples import gridspec\n")
+    assert set(_imported_modules(str(src))) == {"os", "jax", "alan_tpu.dims", "examples"}

@@ -54,6 +54,10 @@ and no JAX it runs without the suite's conftest:
   materialised form on the card, value and the gradients of x, of the
   parameters and of an x-side term; the kernels at F = 1 and 2 among the
   cases above;
+* ``scan_steps`` and ``vmap_runs`` of a planned step at world size 1
+  (NCCL): small grouped MovieLens under plate + K sharding through the
+  lowrank kernels and small covid under the T-sharded chain, bitwise the
+  eager planned loop;
 * covid with its corr_Q proposal (a MultivariateNormal, whose Cholesky
   factor the graph holds): ``scan_steps`` against the eager loop;
 * each kernel under ``Split`` and under ``checkpoint`` inside a
@@ -924,3 +928,54 @@ def test_checkpoint_resume_on_the_card(card, tmp_path):
     resumed, _ = train.scan_steps(step2, 2)(ck["state"], ck["generator"])
     for x, y in zip(train._flatten(full)[0], train._flatten(resumed)[0]):
         assert x.device.type == "cuda" and torch.equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["plate_k", "t_chain"])
+def test_planned_scan_steps_on_the_card(card, monkeypatch, kind):
+    """``scan_steps`` and ``vmap_runs`` of a planned step at world size 1
+    (NCCL, a TCP store on 127.0.0.1): small grouped MovieLens under
+    ``{"plate_1": "p"}`` + all K through the lowrank kernels, and small
+    covid under ``{"nDs": "t"}`` (the T-sharded chain): ELBOs and state
+    bitwise the eager planned loop's, launches recorded into the graph."""
+    import socket
+    import torch.distributed as dist
+    from alan_tpu_torch.models import covid
+    from alan_tpu_torch.parallel import distributed
+    from alan_tpu_torch.parallel.mesh import MeshPlan, make_mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize(f"tcp://127.0.0.1:{port}", 1, 0, device_type="cuda")
+    try:
+        if kind == "plate_k":
+            monkeypatch.setenv("ALAN_TPU_LOWRANK_MIN", "1")
+            monkeypatch.setenv("ALAN_TPU_LAZY_LOWRANK", "1")
+            ps, data, cov = tml.load_data_covariates(seed=3, M=20, N=5, device=card)
+            plan = MeshPlan(make_mesh({"k": 1, "p": 1}, device_type="cuda"),
+                            {"plate_1": "p"}).with_all_K("k")
+            step, state0 = train.qem(tml.grouped_problem(ps, data, cov, device=card), 30,
+                                     device=card, mesh_plan=plan)
+            counter = lambda: tk.FWD_LAUNCHES
+        else:
+            ps, _, data, _, cov, _ = covid.load_data_covariates(seed=0, nRs=4, nDs=16,
+                                                                device=card)
+            plan = MeshPlan(make_mesh({"t": 1}, device_type="cuda"), {"nDs": "t"})
+            step, state0 = train.qem(covid.generate_problem(ps, data, cov, "qem", device=card),
+                                     10, device=card, mesh_plan=plan)
+            counter = lambda: 0
+        n = 3
+        st_e, el_e = train._eager(step, n, state0, torch.Generator(device=card).manual_seed(7))
+        run = train.scan_steps(step, n)
+        before = counter()
+        st_s, el_s = run(state0, torch.Generator(device=card).manual_seed(7))
+        assert run.capture_seconds > 0 and (kind != "plate_k" or counter() > before)
+        assert torch.equal(el_s, el_e)
+        for x, y in zip(train._flatten(st_s)[0], train._flatten(st_e)[0]):
+            assert torch.equal(x, y)
+        _, rows = train.vmap_runs(step, n, 2)(state0, 3)
+        for r in range(2):
+            _, e = train._eager(step, n, state0, train.run_generator(3, r, card))
+            assert torch.equal(rows[r], e)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -30,7 +30,9 @@ so its 8-device programs are not compiled here.  The cases
 * the undividable dim's warning (once) and the strict error on a mesh
   axis of 4 (``:119-150``), which needs the group's 4 ranks;
 * ``distributed.initialize()``: False with no address, and the workers'
-  group started by it.
+  group started by it;
+* ``scan_steps`` and ``vmap_runs`` of a planned step, bitwise its eager
+  loop (on the CPU they are that loop, run under the plan).
 
 In the test process, one rank: a world-size-1 plan gives the unsharded
 step's ELBO and state bitwise.  Every planned step runs under
@@ -327,6 +329,28 @@ def worker(rank, world, port, out_dir):
         "warned_again": any("does not divide" in str(m.message) for m in w2),
         "dims": out.dims, "strict": strict}
 
+    # scan_steps and vmap_runs of a planned step against its eager loop
+    res["planned_scan"] = {}
+    for name, (problem, plan, K) in {"tiny_qem_kp": (tiny(), plan_kp, K_TINY),
+                                     "covid_qem_t": (covid_shaped(), plan_t, K_COVID)}.items():
+        step, state0 = train.qem(problem, K, lr=0.1, device="cpu", mesh_plan=plan)
+        with strict_views(plan):
+            st_e, el_e = train._eager(step, 3, state0, seeded_generator(7, "cpu"))
+            st_s, el_s = train.scan_steps(step, 3)(state0, seeded_generator(7, "cpu"))
+            runs_e = [train._eager(step, 3, state0, train.run_generator(8, r, "cpu"))
+                      for r in range(2)]
+            st_r, el_r = train.vmap_runs(step, 3, 2)(state0, 8)
+        leaves = lambda st: train._flatten(st)[0]
+        res["planned_scan"][name] = {
+            "scan_bitwise": torch.equal(el_e, el_s) and all(
+                torch.equal(a, b) for a, b in zip(leaves(st_e), leaves(st_s))),
+            "runs_bitwise": all(
+                torch.equal(el_r[r], e) and all(
+                    torch.equal(a, b) for a, b in zip(leaves(train.run_state(st_r, r)),
+                                                      leaves(st)))
+                for r, (st, e) in enumerate(runs_e)),
+            "elbos": el_s.numpy().copy()}
+
     # the cases fed alan_tpu's particles, once the test process wrote them
     inp = _wait_for_inputs(out_dir)
     # the tiny problem, QEM and VI, under plate + K sharding
@@ -595,6 +619,20 @@ def test_no_fullplate_gather_in_the_headline_step(group):
     for r in ranks:
         ag = r["inventory"]["headline"].get("all-gather", {"count": 0, "bytes": 0})
         assert ag["bytes"] < 1_000_000, r["inventory"]["headline"]
+
+
+@pytest.mark.parametrize("name", ["tiny_qem_kp", "covid_qem_t"])
+def test_planned_scan_steps_and_runs_are_the_eager_loop(group, name):
+    """``scan_steps`` and ``vmap_runs`` of a planned step (plate + K on
+    {k: 2, p: 2}; the T-sharded chain on {t: 4}) on 4 ranks: bitwise the
+    eager planned loop from the same generators, every rank alike."""
+    _, ranks = group
+    for r in ranks:
+        got = r["planned_scan"][name]
+        assert got["scan_bitwise"] and got["runs_bitwise"], name
+        assert np.all(np.isfinite(got["elbos"]))
+    assert all(np.array_equal(r["planned_scan"][name]["elbos"],
+                              ranks[0]["planned_scan"][name]["elbos"]) for r in ranks)
 
 
 def test_undividable_dim_warns_once_and_strict_raises(group):

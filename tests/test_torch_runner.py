@@ -85,3 +85,26 @@ def test_refusals(monkeypatch):
     with pytest.raises(ValueError, match="MeshPlan"):
         train.global_qem(runner.load_model("synthetic_model", 0, "qem", "cpu")[0], 3,
                          device="cpu", mesh_plan=object())
+
+
+@pytest.mark.parametrize("loop", [["--fuse-iters"], ["--runs", "2"]])
+def test_fuse_iters_and_runs_with_a_mesh(capsys, tmp_path, loop):
+    """``--fuse-iters`` / ``--runs`` with ``--mesh`` (one gloo rank): the
+    planned loop runs, its ELBOs those of the eager planned run (the
+    first run's, for ``--runs``)."""
+    import torch.distributed as dist
+
+    def planned(*extra):
+        store = dist.FileStore(str(tmp_path / f"store{len(extra)}"), 1)
+        dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+        return _cli(capsys, "--model", "radon", "--K", "3", "--iters", "3",
+                    "--mesh", "p=1", "--shard", "States=p", *extra)
+    eager = planned()
+    assert not dist.is_initialized() and eager["mesh"] == "p=1"
+    fused = planned(*loop)
+    assert fused["fused_loop"] is True and fused["mesh"] == "p=1"
+    if loop == ["--fuse-iters"]:
+        assert fused["elbos"] == eager["elbos"]
+    else:
+        assert len(fused["per_run_elbos"]) == 2
+        assert np.all(np.isfinite(fused["per_run_elbos"]))
