@@ -368,9 +368,31 @@ without its final line:
                 (captured under the plan, world size 1): bitwise the eager
                 planned loop, launches per replay, captured ms/step beside
                 the unsharded step's captured ms/step.
+46. experiments_covid_gold -- ``alan_tpu_torch.experiments`` modules 2-5
+                at covid 16 x 25: ``moments_vs_hmc_covid`` (two NUTS golds
+                of 100 + 100 draws, QEM K=30), ``covid_k_sweep`` (SMC 2048,
+                MP at K = 10, 30, 100), ``covid_corrq_probe`` (corr_Q at
+                K = 30), ``covid_smc_particle_trend`` (256, 1024, 2048):
+                every draw and ELBO finite, each MP step's chain launches
+                those of the launch plan; z by K and variable, self-z,
+                R-hat, ESS and seconds reported;
+47. experiments_covid_full_quality -- ``covid_full_qem_quality`` seed 0:
+                full-size covid, 12 x 50 captured QEM steps, the predictive
+                log-likelihood over 137 days after each: finite, the last
+                segment's ELBO above the first's, 3 + 3 chain launches a
+                replay; ms a step, peak GB, latent recovery reported;
+48. experiments_ffbs_coupling -- ``ffbs_coupling_sweep`` at its defaults:
+                the joint FFBS route within 5 standard errors of the
+                Kalman posterior at every coupling; the conditional route
+                reported;
+49. latent_recovery -- ``experiments.latent_recovery``: the checks of
+                ``tests/test_latent_recovery.py`` at its settings and bars;
+50. experiments_occupancy_collapse -- ``occupancy_collapse_probe``: the
+                seven configurations at a third of their steps, coverage
+                reported, ELBOs finite.
 
 Each path (phases 3, 5, 7, 9, 11, 13, 28, each model of 31, each call of
-14, 16, 17 and 19, each family of 27, and phases 42-44) is driven with the launch counters set to 0 just
+14, 16, 17 and 19, each family of 27, and phases 42-44, 46-50) is driven with the launch counters set to 0 just
 before it and read just after, and each but 13's, 19's and 27's is
 profiled over two more steps or calls.  Then the ``kernels`` line (the VI
 path's lowrank launches by backward mode, the RWS and corr_Q paths' chain
@@ -380,7 +402,8 @@ covid_reparam's chain launches (``canonical_launches``),
 ``graph_launches``: each captured path's launches per replay and its
 replays, and ``strategy_launches``: phases 32-34's launches a step under
 each strategy; ``mesh_launches``: phase 40's launches under a plan;
-``new_path_launches``: phases 42-44's launches and phase 45's per replay), the
+``new_path_launches``: phases 42-44's launches and phase 45's per replay;
+``experiment_launches``: phases 46 and 48-50's launches, 47's per replay), the
 card's name and power limit as nvidia-smi prints them, and
 ``{"ok": true, "device": {...}}`` last.
 """
@@ -3675,16 +3698,18 @@ STRATEGY_ELBO_TOL, STRATEGY_TOL = dict(rtol=1e-5, atol=1e-6), dict(rtol=1e-4, at
 #: Split's and reversed chunks') and below a planted chunking fault's
 #: (``_control_splits``); both read in every run
 COVID_WEIGHTS_TOL = 2e-2
-#: the covid K sweep's K = 300 point (``scripts/covid_k_sweep.py:170-180``)
-K300_SHAPE, K300, K300_STEPS = (16, 25), 300, 5
+#: the covid K sweep's K = 300 point (``scripts/covid_k_sweep.py:170-180``),
+#: 3 steps (5 before phases 46-50 joined the script's time limit)
+K300_SHAPE, K300, K300_STEPS = (16, 25), 300, 3
 #: the gold runs on full-size covid: NUTS (warmup, draws, chains, depth),
-#: HMC (warmup, draws, leapfrog steps), SMC at 16 x 25, QEM at K = 30
-GOLD_NUTS = (150, 100, 4, 8)
+#: HMC (warmup, draws, leapfrog steps), SMC at 16 x 25, QEM at K = 30;
+#: NUTS cut from 150 + 100 and the small NUTS from 50 + 50 for the same limit
+GOLD_NUTS = (100, 50, 4, 8)
 GOLD_HMC = (100, 100, 16)
 #: the step sizes one leapfrog's energy error is read at (``_energy_errors``)
 ENERGY_EPS = (0.1, 1e-2, 1e-3, 1e-4)
 GOLD_SMC_PARTICLES, GOLD_SMC_SHAPE = 2048, (16, 25)
-GOLD_SMALL_NUTS = (50, 50, 4, 8)
+GOLD_SMALL_NUTS = (25, 25, 4, 8)
 GOLD_QEM_ITERS = 150
 
 
@@ -3852,8 +3877,8 @@ def phase_strategies_covid_k30():
     """Full-size covid QEM at K=30 under no_checkpoint, checkpoint,
     Split("nRs", 23) (4 equal chunks) and Split("nRs", 40) (40, 40 and a
     remainder of 12), eager and captured, on the recipe's counts
-    (``_covid_recipe``) with Q centred on the recipe's latents (scale
-    ``COVID_NEAR_TRUTH_SCALE``).  At the fake data's Q initial state the
+    (``experiments.covid_recipe.recipe``) with Q centred on the recipe's
+    latents (scale ``COVID_NEAR_TRUTH_SCALE``).  At the fake data's Q initial state the
     ELBO is -2.4e7, a float32 ulp of it 2 nats, so the order of the plate
     sum alone moves the root's marginal weights by ~1e-2; here by ~2e-3,
     so the weights are held to ``COVID_WEIGHTS_TOL``, read against the
@@ -3861,9 +3886,10 @@ def phase_strategies_covid_k30():
     (``_control_splits``)."""
     import torch
     from alan_tpu_torch import Split, checkpoint, no_checkpoint, train
+    from alan_tpu_torch.experiments import covid_recipe
     from alan_tpu_torch.models import covid
     from alan_tpu_torch.sampler import PermutationSampler
-    ps, cov, data, walk = _covid_recipe(covid.nRs, covid.nDs)
+    ps, cov, data, walk = covid_recipe.recipe(covid.nRs, covid.nDs)
     problem = covid.generate_problem(ps, data, cov, "qem", device="cuda")
     state = _near_truth(problem, _covid_truth_latents(ps, walk, "cuda"),
                         COVID_NEAR_TRUTH_SCALE)
@@ -3930,31 +3956,10 @@ def phase_strategies_grouped_k1000():
     return out
 
 
-def _covid_recipe(nRs, nDs, seed=0, device="cuda"):
-    """Covid's covariates (``models/covid.fake_data``) with counts by the
-    recipe of ``scripts/moments_vs_hmc_covid.py:51-62``: log-infected a
-    random walk around log(1000) with 0.05 nats a day of drift, counts
-    gamma-Poisson at the model's own psi.  (The prior's own counts explode,
-    and NUTS's step size collapses on them.)  Returns (platesizes,
-    covariates, data, the walk and r = exp(psi))."""
-    import numpy as np
-    from alan_tpu_torch.convert import dt_from_numpy
-    from alan_tpu_torch.models import covid
-    ps, _, _, _, cov, _ = covid.load_data_covariates(seed=seed, nRs=nRs, nDs=nDs,
-                                                     device=device)
-    nT = ps["nDs"]
-    rng = np.random.default_rng(seed + 17)
-    li = np.log(1000.0) + np.cumsum(rng.normal(0.05, 0.15, size=(nRs, nT)), axis=1)
-    r = np.exp(rng.normal(0.0, 1.0, size=(nRs, 1)))
-    lam = rng.gamma(shape=r, scale=np.exp(li) / r)
-    y = rng.poisson(lam).astype(np.float32)
-    return ps, cov, {"obs": dt_from_numpy(y, ("nRs", "nDs"), device)}, (li, r)
-
-
 def phase_covid_k300_split():
     """The covid K sweep's K = 300 point: covid at 16 x 25 (20 training
     days), the recipe's counts, QEM at K = 300 under Split("nRs", 2) (8
-    chunks), 5 steps and ``marginals()``: the fused log-matmul and both its
+    chunks), ``K300_STEPS`` steps and ``marginals()``: the fused log-matmul and both its
     fix-ups in every chunk (each chunk checkpointed: the fused kernel keeps
     20.5 GB a region for its backward).  Unsplit (about 35 GB of factor by
     ``alan_tpu``'s comment) where it fits, else reported; and one step under
@@ -3971,10 +3976,11 @@ def phase_covid_k300_split():
     state within ``STRATEGY_TOL``."""
     import torch
     from alan_tpu_torch import Split, no_checkpoint, train
+    from alan_tpu_torch.experiments import covid_recipe
     from alan_tpu_torch.models import covid
     phase = "covid_k300_split"
     nRs, nDs = K300_SHAPE
-    ps, cov, data, walk = _covid_recipe(nRs, nDs)
+    ps, cov, data, walk = covid_recipe.recipe(nRs, nDs)
     runs, first, ones = {}, None, {}
     ok = True
     for name, cs, chunks, steps in (("split_nRs_2", Split("nRs", 2), 8, K300_STEPS),
@@ -4221,32 +4227,6 @@ def _covid_truth_latents(ps, walk, device):
             "psi": f(np.log(r[:, 0]), "nRs"), "log_infected": f(li, "nRs", "nDs")}
 
 
-def _z_scores(gold, other):
-    """``scripts/covid_k_sweep.py:126-148``'s metric: per coordinate |other
-    - gold| / stderr, stderr the gold's between-chain dispersion of chain
-    means over sqrt(chains), floored at 2% of max(|gold|, 0.05); summarised
-    over every coordinate."""
-    import numpy as np
-    zs = {}
-    for name, (arr, o) in {k: (gold[k], other[k]) for k in other if k in gold}.items():
-        gm = arr.mean(axis=(0, 1))
-        stderr = arr.mean(axis=0).std(axis=0, ddof=1) / np.sqrt(arr.shape[1])
-        stderr = np.maximum(stderr, 0.02 * np.maximum(np.abs(gm), 0.05))
-        if o.shape == gm.shape:
-            zs[name] = np.abs(o - gm) / stderr
-    allz = np.concatenate([z.ravel() for z in zs.values()])
-    return {"by_variable": {k: {"z_median": float(np.median(z)), "z_max": float(z.max())}
-                            for k, z in zs.items()},
-            "n_coords": int(allz.size), "z_median": float(np.median(allz)),
-            "z_p90": float(np.percentile(allz, 90)), "frac_z_lt_5": float(np.mean(allz < 5.0))}
-
-
-def _draws_np(samples):
-    """{name: (draw, chain, ...) numpy}."""
-    return {k: v.with_dims_front(["draw", "chain"]).data.cpu().numpy()
-            for k, v in samples.items()}
-
-
 def _energy_errors(lp32, lp64, theta, gen):
     """One leapfrog step's energy error from each chain's ``theta`` (chain,
     D) with unit-normal momenta, at each of ``ENERGY_EPS``, through the
@@ -4299,6 +4279,7 @@ def phase_gold_covid():
     import torch
     from alan_tpu_torch import diagnostics, mean, mcmc, train
     from alan_tpu_torch.dims import DT
+    from alan_tpu_torch.experiments import covid_recipe
     from alan_tpu_torch.models import covid
     from alan_tpu_torch.nuts import _Draw, run_nuts
     from alan_tpu_torch.smc import run_smc
@@ -4306,7 +4287,7 @@ def phase_gold_covid():
     gen = lambda seed: torch.Generator(device="cuda").manual_seed(seed)
     faults = []
     f64 = lambda tree: {k: DT(v.data.double(), v.dims) for k, v in tree.items()}
-    ps, cov, data32, walk = _covid_recipe(covid.nRs, covid.nDs)
+    ps, cov, data32, walk = covid_recipe.recipe(covid.nRs, covid.nDs)
     P, data = covid.get_P(ps, f64(cov), device="cuda"), f64(data32)
     latents = f64(_covid_truth_latents(ps, walk, "cuda"))
     logpost = mcmc.LogPost(P, data, latents)
@@ -4315,7 +4296,7 @@ def phase_gold_covid():
     D = logpost.D
 
     # the log posterior on the card against float64 on the host
-    ps_h, cov_h, data_h, _ = _covid_recipe(covid.nRs, covid.nDs, device="cpu")
+    ps_h, cov_h, data_h, _ = covid_recipe.recipe(covid.nRs, covid.nDs, device="cpu")
     logpost_h = mcmc.LogPost(covid.get_P(ps_h, f64(cov_h), device="cpu"), f64(data_h),
                              f64(_covid_truth_latents(ps_h, walk, "cpu")))
     thetas = logpost.theta0[None] + 0.01 * torch.randn(
@@ -4346,7 +4327,7 @@ def phase_gold_covid():
         faults.append("a NUTS draw is not finite")
     leapfrogs = (2 ** MD - 1 + 1) * C           # a draw's gradients, every chain
     nuts_ms = (nuts_s - diag["capture_s"]) / (W + S) * 1e3
-    gold = _draws_np(samples)
+    gold = covid_recipe.draws_np(samples)
 
     # 5 draws captured against eager, bitwise
     short = dict(num_samples=5, num_warmup=0, num_chains=C, max_depth=MD, latents=latents)
@@ -4411,7 +4392,8 @@ def phase_gold_covid():
         """The z-scores of ``other`` against a gold run, keyed ``unconverged``
         where the run's R-hat exceeds 1.1 anywhere."""
         ok = all(v["rhat_max"] <= 1.1 for v in gold_diag.values())
-        return {"z_vs_nuts" if ok else "z_vs_nuts_unconverged": _z_scores(gold_draws, other)}
+        return {"z_vs_nuts" if ok else "z_vs_nuts_unconverged":
+                covid_recipe.z_scores(gold_draws, other)}
 
     # MP QEM at K = 30 on the same data, against the NUTS draws
     problem = covid.generate_problem(ps, data32, cov, "qem", device="cuda")
@@ -4427,7 +4409,7 @@ def phase_gold_covid():
 
     # NUTS (float64) and SMC (float32) at the script's 16 x 25
     nR, nD = GOLD_SMC_SHAPE
-    ps_s, cov_s, data_s, walk_s = _covid_recipe(nR, nD)
+    ps_s, cov_s, data_s, walk_s = covid_recipe.recipe(nR, nD)
     P_s = covid.get_P(ps_s, cov_s, device="cuda")
     lat_s = _covid_truth_latents(ps_s, walk_s, "cuda")
     P_s64 = covid.get_P(ps_s, f64(cov_s), device="cuda")
@@ -4446,7 +4428,7 @@ def phase_gold_covid():
     smc, smc_info = run_smc(P_s, data_s, num_particles=GOLD_SMC_PARTICLES, generator=gen(9),
                             latents=lat_s)
     smc_s = time.perf_counter() - t0
-    small_np = _draws_np(small)
+    small_np = covid_recipe.draws_np(small)
     smc_means = {k: v.with_dims_front(["particle", *lat_s[k].dims]).data.cpu().numpy()
                  .mean(axis=0) for k, v in smc.items()}
     gold_diag, small_gold_diag = diagnose(gold), diagnose(small_np)
@@ -4468,7 +4450,7 @@ def phase_gold_covid():
                    "grad_evals_per_s_captured": (L + 1) * C * (Wh + Sh) / hmc_s,
                    "ms_per_draw_captured": hmc_s / (Wh + Sh) * 1e3,
                    "mean_accept": h_diag["mean_accept"], "step_size": h_diag["step_size"],
-                   "diagnostics": diagnose(_draws_np(h_samples))},
+                   "diagnostics": diagnose(covid_recipe.draws_np(h_samples))},
            "qem_k30": {"iters": GOLD_QEM_ITERS, "s": qem_s, **z_against(gold, gold_diag, mp)},
            "small": {"nRs": nR, "nDs_train": ps_s["nDs"], "D": small_diag["theta"].shape[-1],
                      "nuts_s": small_s, "nuts_capture_s": small_diag["capture_s"],
@@ -5189,6 +5171,263 @@ def phase_scan_planned():
     return {c["case"]: c.get("launches_per_replay", {}) for c in cases}
 
 
+# ---- phases 46-50: the quality experiments ---------------------------------------
+
+#: phase 46's cuts, in draws and iterations only: both gold runs 100 warm-up
+#: + 100 draws (the JAX scripts' 500 + 500; each run also captures its two
+#: graphs, ~15 s each), the K sweep at K = 10, 30, 100
+#: (its K = 300 point is phase 34's), corr_Q at K = 30 beside the sweep's
+#: factorised K = 30, the particle trend at 256, 1024 and 2048 (4096); QEM
+#: at the scripts' 150 steps
+EXP_GOLD = (100, 100)
+EXP_KS, EXP_CORRQ_KS, EXP_PARTICLES, EXP_ITERS = (10, 30, 100), (30,), (256, 1024, 2048), 150
+#: phase 50 runs each occupancy configuration for a third of its steps
+EXP_OCC_STEPS_CUT = 3
+
+
+class _StepLaunches:
+    """An ``after_step`` hook for ``experiments.covid_recipe.fit_mp``: each
+    QEM step's small-K chain launches, forward and backward, beside the
+    launch plan's length for the chain of ``T`` operators at the step's
+    K (one forward and one backward launch a plan entry)."""
+
+    def __init__(self, T):
+        self.T, self.rows, self.last = T, [], None
+
+    def __call__(self, tag, K, i):
+        from alan_tpu_torch.ops.smallk_kernel import launch_plan
+        now = read_counts()
+        if i >= 0:
+            self.rows.append((tag, i, {k: now[k] - self.last[k]
+                                       for k in ("smallk_fwd", "smallk_bwd")},
+                              len(launch_plan(self.T, K))))
+        self.last = now
+
+    def report(self):
+        """({fit: {steps, launches a step, plan}}, steps off the plan)."""
+        fits, off = {}, []
+        for tag, i, d, plan in self.rows:
+            f = fits.setdefault(tag, {"steps": 0, "per_step": set(), "plan": plan})
+            f["steps"] += 1
+            f["per_step"].add((d["smallk_fwd"], d["smallk_bwd"]))
+            if d["smallk_fwd"] != plan or d["smallk_bwd"] != plan:
+                off.append((tag, i, d, plan))
+        return {k: dict(v, per_step=sorted(v["per_step"])) for k, v in fits.items()}, off
+
+
+def _z_summary(entry):
+    return {"overall": entry.get("overall"),
+            "z_median_by_variable": {k: v["z_median"] for k, v in entry["variables"].items()}}
+
+
+def _diag_summary(diag):
+    return {"rhat_max": max(v["rhat_max"] for v in diag.values()),
+            "ess_min": min(v["ess_min"] for v in diag.values()),
+            "rhat_max_by_variable": {k: v["rhat_max"] for k, v in diag.items()}}
+
+
+def phase_experiments_covid_gold():
+    """``experiments`` modules 2-5 at covid 16 x 25 (``EXP_*``'s cuts), in
+    one output directory so that the modules share the NUTS gold's cache.
+    Gates: every gold draw (both runs) and SMC particle finite, every QEM
+    ELBO finite, each QEM step's chain launches those of the launch plan
+    (``_StepLaunches``).  Reported: z by K and by variable, NUTS's
+    self-consistency z, R-hat, ESS, the gold's dtype and each module's
+    seconds."""
+    import tempfile
+    import numpy as np
+    import torch
+    from alan_tpu_torch.experiments import (covid_corrq_probe, covid_k_sweep,
+                                            covid_smc_particle_trend, moments_vs_hmc_covid)
+    from alan_tpu_torch.experiments import covid_recipe as cr
+    phase = "experiments_covid_gold"
+    nRs, nDs = cr.REDUCED
+    hook = _StepLaunches(int(0.8 * nDs))
+    seconds = {}
+    zero_counts()
+    with tempfile.TemporaryDirectory() as out:
+        common = dict(nRs=nRs, nDs=nDs, warmup=EXP_GOLD[0], draws=EXP_GOLD[1], device="cuda",
+                      out_dir=out)
+        t0 = time.perf_counter()
+        hmc = moments_vs_hmc_covid.run(K=K_COVID, iters=EXP_ITERS,
+                                       after_step=lambda i: hook("moments_K30", K_COVID, i),
+                                       **common)
+        seconds["moments_vs_hmc_covid"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sweep = covid_k_sweep.run(Ks=EXP_KS, iters=EXP_ITERS,
+                                  after_step=lambda K, i: hook(f"sweep_K{K}", K, i), **common)
+        seconds["covid_k_sweep"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        corrq = covid_corrq_probe.run(Ks=EXP_CORRQ_KS, iters=EXP_ITERS, arms=(("corr_Q", True),),
+                                      after_step=lambda a, K, i: hook(f"{a}_K{K}", K, i),
+                                      **common)
+        seconds["covid_corrq_probe"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        smc = covid_smc_particle_trend.run(particle_counts=EXP_PARTICLES, **common)
+        seconds["covid_smc_particle_trend"] = time.perf_counter() - t0
+        gold = np.load(os.path.join(out, "covid_nuts_gold.npz"))
+        gold_finite = all(bool(np.isfinite(gold[k]).all()) for k in gold.files)
+    launches = read_counts()
+    fits, off_plan = hook.report()
+    elbos_finite = {"moments_K30": hmc["mp_elbos_finite"],
+                    **{f"sweep_K{K}": r["elbos_finite"] for K, r in sweep["by_K"].items()},
+                    **{k: r["elbos_finite"] for k, r in corrq["arms"].items()}}
+    draws_finite = {"gold": gold_finite, "gold2": hmc["diag2"]["finite"],
+                    "smc_2048": smc["smc_diag"]["finite"],
+                    **{f"smc_{n}": t["finite"] for n, t in smc["particle_trend"].items()}}
+    steps = EXP_ITERS * (1 + len(EXP_KS) + len(EXP_CORRQ_KS))
+    faults = []
+    if not all(draws_finite.values()):
+        faults.append(f"a draw is not finite: {draws_finite}")
+    if not all(elbos_finite.values()):
+        faults.append(f"an ELBO is not finite: {elbos_finite}")
+    if off_plan or len(hook.rows) != steps:
+        faults.append(f"{len(hook.rows)} of {steps} QEM steps read; off the launch plan: "
+                      f"{off_plan[:5]}")
+    res = {"phase": phase, "nRs": nRs, "nDs_train": int(0.8 * nDs),
+           "cuts": {"gold_warmup_draws": EXP_GOLD, "Ks": EXP_KS, "corr_Q_Ks": EXP_CORRQ_KS,
+                    "particles": EXP_PARTICLES, "iters": EXP_ITERS},
+           "gold_dtype": hmc["gold_dtype"], "gold_diag": hmc["diag"], "gold2_diag": hmc["diag2"],
+           "gold_diagnostics": _diag_summary(hmc["gold_diagnostics"]),
+           "gold2_diagnostics": _diag_summary(hmc["gold2_diagnostics"]),
+           "moments_vs_hmc": {"overall": hmc.get("overall"),
+                              "by_variable": {k: {m: v[m] for m in (
+                                  "z_median", "nuts_self_z_median", "nuts_converged_here")}
+                                  for k, v in hmc["variables"].items()}},
+           "z_by_K": {K: _z_summary(r) for K, r in sweep["by_K"].items()},
+           "corr_Q": {k: _z_summary(r) for k, r in corrq["arms"].items()},
+           "smc_vs_nuts": smc.get("overall"),
+           "smc_particle_trend": {n: {m: t[m] for m in ("z_median", "frac_z_lt_5", "log_Z",
+                                                      "smc_time_s")}
+                                  for n, t in smc["particle_trend"].items()},
+           "qem_launches_per_step": fits, "draws_finite": draws_finite,
+           "elbos_finite": elbos_finite, "seconds": seconds,
+           "launches": {k: v for k, v in launches.items() if v}, "ok": not faults}
+    for f in faults:
+        fail(phase, f)
+    emit(res)
+    torch.cuda.empty_cache()
+    return res["launches"]
+
+
+def phase_experiments_covid_full_quality():
+    """``covid_full_qem_quality`` seed 0 at full size: 12 segments of 50
+    captured QEM steps, the predictive log-likelihood over all 137 days
+    after each.  Gates: every ELBO and predictive log-likelihood finite,
+    the last segment's ELBO above the first's, each captured replay's
+    chain launches 3 + 3 (the launch plan at T = 109, K = 30).  Reported:
+    ELBO, predictive log-likelihood and ms a step by segment, the peak,
+    latent recovery."""
+    import torch
+    from alan_tpu_torch.experiments import covid_full_qem_quality as fq
+    from alan_tpu_torch.models import covid
+    from alan_tpu_torch.ops.smallk_kernel import launch_plan
+    phase = "experiments_covid_full_quality"
+    plan = len(launch_plan(int(0.8 * covid.nDs), fq.K))
+    t0 = time.perf_counter()
+    with _CountedCaptures() as caps:
+        zero_counts()
+        rec = fq.run_seed(0, "cuda")
+        launches = read_counts()
+    seconds = time.perf_counter() - t0
+    segs = rec.pop("segments")
+    rec.pop("final_flat_means")
+    replays = [{k: c[k] for k in ("smallk_fwd", "smallk_bwd")} for c in caps.records]
+    faults = []
+    if not all(s["elbos_finite"] and math.isfinite(s["predictive_ll"]) for s in segs):
+        faults.append("a non-finite ELBO or predictive log-likelihood")
+    if not segs[-1]["elbo"] > segs[0]["elbo"]:
+        faults.append(f"the last segment's ELBO {segs[-1]['elbo']} not above the first's "
+                      f"{segs[0]['elbo']}")
+    if not replays or any(r["smallk_fwd"] != plan or r["smallk_bwd"] != plan for r in replays):
+        faults.append(f"captured replays' chain launches {replays}, plan {plan} + {plan}")
+    res = {"phase": phase, "seed": 0, "K": fq.K, "segments_x_steps": (fq.N_SEGS, fq.SEG),
+           "predictive_N": fq.PRED_N,
+           "by_segment": {k: [s[k] for s in segs] for k in (
+               "elbo", "predictive_ll", "moment_max_rel_drift", "ms_per_step",
+               "predictive_ll_s")},
+           "capture_s": segs[0]["capture_s"],
+           "ms_per_step_median_after_capture": statistics.median(
+               s["ms_per_step"] for s in segs[1:]) if len(segs) > 1 else None,
+           **rec, "launches_per_replay": replays, "launches": launches,
+           "seconds": seconds, "ok": not faults}
+    for f in faults:
+        fail(phase, f)
+    emit(res)
+    torch.cuda.empty_cache()
+    return replays[0] if replays else {}
+
+
+def phase_experiments_ffbs_coupling():
+    """``ffbs_coupling_sweep`` at its defaults (K = 16, N = 4000, 8
+    repetitions, five couplings).  Gate: the joint route within 5 standard
+    errors of the Kalman posterior at every coupling; the conditional
+    route reported."""
+    import tempfile
+    from alan_tpu_torch.experiments import ffbs_coupling_sweep as fs
+    phase = "experiments_ffbs_coupling"
+    zero_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        rec = fs.run(device="cuda", out_dir=out)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    joint = {c: r["joint"]["max_bias_over_stderr"] for c, r in rec["couplings"].items()}
+    ok = all(z <= 5.0 for z in joint.values())
+    if not ok:
+        fail(phase, f"the joint route's bias over its standard error {joint}")
+    emit({"phase": phase, "K": rec["K"], "N": rec["N"], "reps": rec["reps"],
+          "couplings": rec["couplings"], "joint_max_bias_over_stderr": joint,
+          "seconds": seconds, "launches": {k: v for k, v in launches.items() if v}, "ok": ok})
+    return {k: v for k, v in launches.items() if v}
+
+
+def phase_latent_recovery():
+    """``experiments.latent_recovery``: ``tests/test_latent_recovery.py``'s
+    checks at its settings and bars (coverage 0.85, occupancy 0.70, the
+    ELBO rising, the predictive log-likelihood improving), each gated."""
+    import tempfile
+    from alan_tpu_torch.experiments import latent_recovery as lr
+    phase = "latent_recovery"
+    zero_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        rec = lr.run(device="cuda", out_dir=out)
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    failed = [f"{test}/{m}" for test, v in rec.items() if test.startswith("test_")
+              for m, r in (v.items() if "ok" not in v else [("", v)]) if not r["ok"]]
+    if failed:
+        fail(phase, f"failed: {failed}")
+    emit({"phase": phase, **{k: v for k, v in rec.items() if k.startswith("test_")},
+          "seconds": seconds, "launches": {k: v for k, v in launches.items() if v},
+          "ok": not failed})
+    return {k: v for k, v in launches.items() if v}
+
+
+def phase_experiments_occupancy_collapse():
+    """``occupancy_collapse_probe``'s seven configurations at a third of
+    their steps (``EXP_OCC_STEPS_CUT``): coverage, median posterior sd and
+    the last ELBOs reported; gate: every ELBO finite."""
+    from alan_tpu_torch.experiments import occupancy_collapse_probe as oc
+    phase = "experiments_occupancy_collapse"
+    zero_counts()
+    t0 = time.perf_counter()
+    rec = {name: oc.run_config(name, method, qtype, K, iters // EXP_OCC_STEPS_CUT, lr,
+                               device="cuda")
+           for name, (method, qtype, K, iters, lr) in oc.CONFIGS.items()}
+    seconds = time.perf_counter() - t0
+    launches = read_counts()
+    ok = all(r["elbos_finite"] for r in rec.values())
+    if not ok:
+        fail(phase, "a non-finite ELBO")
+    emit({"phase": phase, "configs": {k: {m: r[m] for m in (
+        "method", "K", "iters", "lr", "coverage", "median_post_sd", "elbo_end", "seconds")}
+        for k, r in rec.items()}, "steps_cut": EXP_OCC_STEPS_CUT, "seconds": seconds,
+        "launches": {k: v for k, v in launches.items() if v}, "ok": ok})
+    return {k: v for k, v in launches.items() if v}
+
+
 def nvidia_smi_clocks():
     """The card's SM clock, power draw and power limit, sampled now."""
     out = subprocess.run(
@@ -5298,6 +5537,14 @@ def main():
         seconds[name] = time.perf_counter() - t0
     emit({"phase": "grid_moments_planned", "seconds": {k: seconds[k] for k in (
         "grid_cli", "moments_gold", "moments_is_sweep", "scan_planned")}})
+    experiment_launches = {}
+    for name in ("experiments_covid_gold", "experiments_covid_full_quality",
+                 "experiments_ffbs_coupling", "latent_recovery",
+                 "experiments_occupancy_collapse"):
+        t0 = time.perf_counter()
+        experiment_launches[name] = globals()[f"phase_{name}"]()
+        seconds[name] = time.perf_counter() - t0
+    emit({"phase": "experiments", "seconds": {k: seconds[k] for k in experiment_launches}})
 
     def new_paths(*keys):
         """Each new path's launches of the counters ``keys``: the grid's
@@ -5309,6 +5556,12 @@ def main():
             case: {k: per.get(k, 0) for k in keys}
             for case, per in new_launches["scan_planned"].items()}
         return out
+
+    def experiments(*keys):
+        """Each experiment phase's launches of the counters ``keys`` (the
+        full-size quality run's per replay)."""
+        return {path: {k: per.get(k, 0) for k in keys}
+                for path, per in experiment_launches.items()}
 
     def graphed(key):
         """Each captured path's launches of one counter: per replay, and
@@ -5334,6 +5587,7 @@ def main():
              graph_launches=graphed("lowrank_fwd"),
              families_launches=fam_launches["lowrank_fwd"],
              new_path_launches=new_paths("lowrank_fwd"),
+             experiment_launches=experiments("lowrank_fwd"),
              strategy_launches=by_strategy("lowrank_fwd"),
              families_ms={k: {m: v[m] for m in ("F", "fwd_ms", "plain_fwd_ms",
                                                  "fwd_bound_tc_ms")}
@@ -5355,6 +5609,8 @@ def main():
                                         for m in ("dD", "dU", "dV")},
              new_path_launches=new_paths("lowrank_bwd_dD", "lowrank_bwd_dU",
                                          "lowrank_bwd_dV"),
+             experiment_launches=experiments("lowrank_bwd_dD", "lowrank_bwd_dU",
+                                             "lowrank_bwd_dV"),
              strategy_launches=by_strategy("lowrank_bwd_dD", "lowrank_bwd_dU",
                                            "lowrank_bwd_dV"),
              families_ms={k: {m: v[m] for m in ("F", "bwd_dD_ms", "bwd_all_grads_ms",
@@ -5372,6 +5628,7 @@ def main():
              canonical_launches={k: v.get("smallk_fwd") for k, v in canonical_chain.items()},
              strategy_launches=by_strategy("smallk_fwd"),
              new_path_launches=new_paths("smallk_fwd"),
+             experiment_launches=experiments("smallk_fwd"),
              covid_own={k: FIXUP_REPORTS["covid_own"][k] for k in (
                  "chain_fwd_ms", "fast_fwd_ms", "fixup_fwd_ms", "fixup_fwd_bound_ms",
                  "joint_entries")},
@@ -5386,6 +5643,7 @@ def main():
              canonical_launches={k: v.get("smallk_bwd") for k, v in canonical_chain.items()},
              strategy_launches=by_strategy("smallk_bwd"),
              new_path_launches=new_paths("smallk_bwd"),
+             experiment_launches=experiments("smallk_bwd"),
              covid_own={k: FIXUP_REPORTS["covid_own"][k] for k in (
                  "chain_bwd_ms", "fast_bwd_ms", "fixup_bwd_ms", "fixup_bwd_bound_ms",
                  "flagged_pairs_bwd")},
@@ -5398,6 +5656,7 @@ def main():
              posterior_launches={"importance_sample": ar1_post_launches["logmmexp"]},
              strategy_launches=by_strategy("logmmexp"),
              new_path_launches=new_paths("logmmexp"),
+             experiment_launches=experiments("logmmexp"),
              graph_launches=graphed("logmmexp"),
              ar1_own_fixups=FIXUP_REPORTS["ar1_own"],
              ar1_own_bwd_fixups=[{k: r[k] for k in (

@@ -24,6 +24,7 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 from alan_tpu_torch import Split, train  # noqa: E402
+from alan_tpu_torch.experiments import covid_recipe  # noqa: E402
 from alan_tpu_torch.models import covid  # noqa: E402
 from alan_tpu_torch.sample import Sample  # noqa: E402
 from alan_tpu_torch.sampler import PermutationSampler  # noqa: E402
@@ -34,7 +35,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     (nRs, nDs), K = chip_smoke.K300_SHAPE, chip_smoke.K300
-    ps, cov, data, _ = chip_smoke._covid_recipe(nRs, nDs)
+    ps, cov, data, _ = covid_recipe.recipe(nRs, nDs)
     problem = covid.generate_problem(ps, data, cov, "qem", device="cuda")
     state0 = (problem.P.state(), problem.Q.state())
     tree, gv2K = problem.Q._sample(K, False, PermutationSampler, problem.all_platedims,
